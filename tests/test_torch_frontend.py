@@ -1,0 +1,87 @@
+"""Port's log-mel frontend vs the JAX package's.
+
+Tolerances: the port and JAX both run framing + rfft + f32 mel products,
+with FFTs and f32 sums in their own orders; measured differences are
+~4e-5 on the normalized features and ~3e-5 on the log-mels. The Pallas
+kernel (interpret mode) is a direct DFT, held to the plain version with
+the bound tests/test_frontend.py holds it to against its own rfft path."""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from tilawa_tpu.ops import frontend as jf  # noqa: E402
+from tilawa_tpu_torch.ops import frontend as tf  # noqa: E402
+from tilawa_tpu_torch.ops import kernels  # noqa: E402
+
+
+def _pre(audio: np.ndarray) -> np.ndarray:
+    return np.concatenate([audio[:, :1], audio[:, 1:] - 0.97 * audio[:, :-1]], axis=1)
+
+
+def test_host_helpers_are_copies():
+    np.testing.assert_array_equal(tf.mel_filterbank(), jf.mel_filterbank())
+    np.testing.assert_array_equal(tf.hann_window(), jf.hann_window())
+    lengths = np.array([0, 1, 399, 400, 401, 559, 560, 16000, 12345])
+    for n in lengths:
+        assert tf.num_frames(int(n)) == jf.num_frames(int(n))
+    np.testing.assert_array_equal(
+        tf.frames_for_length(torch.from_numpy(lengths)).numpy(),
+        np.asarray(jf.frames_for_length(jnp.asarray(lengths))),
+    )
+
+
+def test_dft_tables_are_the_pallas_blocks():
+    real, imag = tf.dft_tables()
+    jr, ji = jf._dft_matrices()
+    for r in range(3):
+        lo, hi = r * jf.HOP_LENGTH, min(r * jf.HOP_LENGTH + jf.HOP_LENGTH, jf.WIN_LENGTH)
+        rows = slice(r * jf._ROW_PAD, r * jf._ROW_PAD + hi - lo)
+        np.testing.assert_array_equal(real[lo:hi], jr[rows, :257])
+        np.testing.assert_array_equal(imag[lo:hi], ji[rows, :257])
+
+
+@pytest.mark.parametrize("seed,n,lengths", [
+    (0, 16000, [16000, 12345, 401]),
+    (1, 12345, [12345, 7000]),
+    (2, 64000, [37104]),
+])
+def test_log_mel_spectrogram_matches_jax(seed, n, lengths):
+    rng = np.random.default_rng(seed)
+    audio = (rng.standard_normal((len(lengths), n)) * 0.1).astype(np.float32)
+    for i, length in enumerate(lengths):
+        audio[i, length:] = 0.0
+    lens = np.array(lengths, np.int32)
+    ref, ref_lens = jf.log_mel_spectrogram(jnp.asarray(audio), jnp.asarray(lens), use_pallas=False)
+    ours, our_lens = tf.log_mel_spectrogram(
+        torch.from_numpy(audio), torch.from_numpy(lens), tf.mel_tables()
+    )
+    np.testing.assert_array_equal(our_lens.numpy(), np.asarray(ref_lens))
+    assert ours.shape == ref.shape
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=2e-4)
+
+
+@pytest.mark.parametrize("n", [16000, 12345, 4321])
+def test_plain_log_mel_matches_pallas_interpret(n):
+    rng = np.random.default_rng(n)
+    pre = _pre((rng.standard_normal((2, n)) * 0.1).astype(np.float32))
+    ref = np.asarray(jf.fused_log_mel(jnp.asarray(pre), interpret=True))
+    ours = tf.log_mel_plain(torch.from_numpy(pre), tf.mel_tables()).numpy()
+    assert ours.shape == ref.shape == (2, tf.num_frames(n), 80)
+    np.testing.assert_allclose(ours, ref, atol=2e-3, rtol=2e-3)
+
+
+def test_cpu_tensor_takes_plain_path_without_launch():
+    pre = torch.from_numpy(_pre(np.random.default_rng(3).standard_normal((1, 8000)).astype(np.float32)))
+    tables = tf.mel_tables()
+    kernels.reset_launches()
+    assert torch.equal(tf.fused_log_mel(pre, tables), tf.log_mel_plain(pre, tables))
+    assert kernels.LAUNCHES["log_mel"] == 0
+
+
+def test_other_devices_raise():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tf.fused_log_mel(torch.empty((1, 8000), device="meta"), tf.mel_tables("meta"))
