@@ -63,6 +63,16 @@ def params_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def packed_size_bytes(variables: dict) -> int:
+    """Bytes of every leaf of a bundle's variables (the model size the
+    runner and the server report; tilawa_tpu train/quantize.py)."""
+    return sum(
+        arr.size * arr.dtype.itemsize
+        for _path, arr in _leaves(variables)
+        if hasattr(arr, "dtype")
+    )
+
+
 def load_into(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
     """Copy a bundle's variables into `model`; every leaf and every buffer
     must match one to one."""

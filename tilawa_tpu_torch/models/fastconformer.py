@@ -15,9 +15,12 @@ the bf16 sum by a numpy float64 scalar, which promotes), keys are masked with
 f32. Convolutions run in the dtype with the bias added after the rounded
 conv output, as flax's nn.Conv does.
 
+Int8Dense keeps flax's order: the bf16 product is rounded, then multiplied
+by the bf16 column scales (int8_dense); quant="mixed" puts the feed-forward
+pair (MIXED_INT4_NAMES) on Int4Dense and every other Dense on Int8Dense.
+
 Only the inference path is ported: no dropout, SpecAugment, remat or batch
-statistics updates. quant="int8"/"mixed" (Int8Dense) come with the
-streaming slice.
+statistics updates.
 """
 
 from __future__ import annotations
@@ -33,7 +36,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from tilawa_tpu_torch.ops.frontend import MelTables, log_mel_spectrogram, mel_tables
-from tilawa_tpu_torch.ops.quant import INT4_BLOCK, int4_matmul, int4_matmul_plain
+from tilawa_tpu_torch.ops.quant import (
+    INT4_BLOCK,
+    int4_matmul,
+    int4_matmul_plain,
+    int8_dense,
+    int8_dense_plain,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 # Keys of a bundle's config.json that only training reads.
@@ -55,9 +64,10 @@ class FastConformerConfig:
     subsampling_channels: int = 256
     subsampling_factor: int = 8
     dtype: torch.dtype = torch.float32
-    # Weight quantization for every Dense: None (fp) or "int4".
+    # Weight quantization for every Dense: None (fp), "int4", "int8" or
+    # "mixed" (int4 feed-forward pair, int8 elsewhere).
     quant: str | None = None
-    # The hand-written kernels (int4 matmul, fused log-mel) for CUDA tensors;
+    # The hand-written kernels (int4/int8 matmul, fused log-mel) for CUDA tensors;
     # False runs the plain PyTorch ops on any device, as the JAX package's
     # use_pallas=False runs pure XLA.
     use_pallas: bool = True
@@ -145,14 +155,52 @@ class Int4Dense(nn.Module):
         return y
 
 
-def make_dense(cfg: FastConformerConfig, k: int, n: int, use_bias: bool = True) -> nn.Module:
+class Int8Dense(nn.Module):
+    """Dense over int8 weights with per-output-column scales: `q` int8
+    [K, N], `scales` f32 [N], optional `bias`. y = bf16(x @ q) * bf16(scales)
+    in the dtype, then the bias (flax Int8Dense's order)."""
+
+    def __init__(self, k: int, n: int, cfg: FastConformerConfig, use_bias: bool = True):
+        super().__init__()
+        self.cfg = cfg
+        self.register_buffer("q", _zeros(k, n, dtype=torch.int8))
+        self.register_buffer("scales", _zeros(n))
+        self.register_buffer("bias", _zeros(n) if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.dtype
+        if dt == torch.bfloat16:
+            dense = int8_dense if self.cfg.use_pallas else int8_dense_plain
+            y = dense(x, self.q, self.scales)
+        elif x.device.type == "cpu" or not self.cfg.use_pallas:
+            # Other dtypes (the small f32 test configs) take flax's order in
+            # that dtype; the kernel computes the bf16 model only.
+            y = torch.matmul(x.to(dt), self.q.to(dt)) * self.scales.to(dt)
+        else:
+            raise ValueError(f"the int8 kernel computes bfloat16 models, not {dt}")
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
+# quant="mixed": module names whose kernels go int4 (the FFN bulk); every
+# other Dense goes int8.
+MIXED_INT4_NAMES = frozenset({"lin1", "lin2"})
+
+
+def make_dense(
+    cfg: FastConformerConfig, k: int, n: int, use_bias: bool = True, name: str = ""
+) -> nn.Module:
     if cfg.quant == "int4":
         return Int4Dense(k, n, cfg, use_bias)
+    if cfg.quant == "int8":
+        return Int8Dense(k, n, cfg, use_bias)
+    if cfg.quant == "mixed":
+        cls = Int4Dense if name in MIXED_INT4_NAMES else Int8Dense
+        return cls(k, n, cfg, use_bias)
     if cfg.quant is None:
         return Dense(k, n, cfg, use_bias)
-    raise NotImplementedError(
-        f"quant={cfg.quant!r} (Int8Dense) is not ported yet; it comes with the streaming slice"
-    )
+    raise ValueError(f"unknown quant mode {cfg.quant!r}")
 
 
 class LayerNorm(nn.Module):
@@ -257,8 +305,8 @@ class FeedForward(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.LayerNorm_0 = LayerNorm(d, cfg.dtype)
-        self.lin1 = make_dense(cfg, d, d * cfg.ff_expansion)
-        self.lin2 = make_dense(cfg, d * cfg.ff_expansion, d)
+        self.lin1 = make_dense(cfg, d, d * cfg.ff_expansion, name="lin1")
+        self.lin2 = make_dense(cfg, d * cfg.ff_expansion, d, name="lin2")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.lin2(F.silu(self.lin1(self.LayerNorm_0(x))))

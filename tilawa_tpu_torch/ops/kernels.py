@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("int4_matmul", "log_mel")
+KERNELS = ("int4_matmul", "log_mel", "int8_matmul")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -11,6 +11,10 @@ TTA (reference: c2c-direct-mixed-tta/run.py): anchor 1.0x pass; if score
 < 0.5, the 0.9x/1.1x perturbed passes run as one batched 2-way forward
 (per-variant forwards for clips past LONG_THRESHOLD), then majority vote
 with score-pick fallback.
+
+transcribe_result is the streaming tracker's acoustic decode: text, the
+collapsed ids and the log-probs, which stay on the device for the
+tracker's CTC fusion scoring.
 """
 
 from __future__ import annotations
@@ -25,10 +29,12 @@ from tilawa_tpu_torch.data.audio import load_audio, speed_perturb
 from tilawa_tpu_torch.data.normalizer import normalize_arabic
 from tilawa_tpu_torch.data.quran import QuranDB
 from tilawa_tpu_torch.data.token_store import TokenStore
+from tilawa_tpu_torch.models.convert import packed_size_bytes
 from tilawa_tpu_torch.ops.ctc import collapse_ctc
 from tilawa_tpu_torch.pipeline.candidates import build_candidates, text_match
 from tilawa_tpu_torch.pipeline.rerank import ctc_rerank
-from tilawa_tpu_torch.pipeline.runtime import LONG_THRESHOLD
+from tilawa_tpu_torch.pipeline.runtime import LONG_THRESHOLD, StreamingEncoderCache
+from tilawa_tpu_torch.streaming.tracker import TranscribeResult
 
 FALLBACK_THRESHOLD = float(os.getenv("TILAWA_THRESHOLD", "0.80"))
 TTA_SKIP_THRESHOLD = float(os.getenv("TILAWA_TTA_SKIP", "0.5"))
@@ -64,6 +70,7 @@ class Recognizer:
         self.token_store = token_store or TokenStore.load_default()
         self.tokenizer = tokenizer or self.token_store.tokenizer
         self.tta = tta
+        self._stream_cache: StreamingEncoderCache | None = None
 
     def decode_ids(self, ids: np.ndarray) -> str:
         deduped = collapse_ctc(np.asarray(ids), self.runtime.blank_id)
@@ -176,18 +183,48 @@ class Recognizer:
     def predict(self, audio_path: str | Path) -> dict:
         return self.predict_audio(load_audio(audio_path))
 
+    def model_size(self) -> int:
+        """Bytes of the runtime's weights as the bundle stores them."""
+        variables = getattr(self.runtime, "variables", None)
+        return packed_size_bytes(variables) if variables is not None else 0
+
     # ---------------------------------------------------------- transcribe
 
     LONG_CHUNK_S = 25.0
     LONG_OVERLAP_S = 1.0
 
     def transcribe_audio(self, audio: np.ndarray) -> str:
-        if len(audio) > self.LONG_CHUNK_S * 16000:
-            # A very long clip would take an unbounded bucket with quadratic
-            # attention: 25 s windows decoded and concatenated instead.
+        if not self.runtime.long_chunking and len(audio) > self.LONG_CHUNK_S * 16000:
+            # Without chunking a very long clip would take an unbounded
+            # bucket with quadratic attention: 25 s windows decoded and
+            # concatenated instead.
             return self._transcribe_long(audio)
+        # forward() chunk-stitches long clips when chunking is on.
         _lp, ids, _t = self.runtime.forward(audio)
         return self.decode_ids(ids)
+
+    def transcribe_result(self, audio: np.ndarray) -> TranscribeResult:
+        """Full acoustic decode of one streaming window: normalized text,
+        collapsed token ids and the log-probs, left on the device for the
+        tracker's CTC fusion scoring.
+
+        With long_chunking the window goes through a StreamingEncoderCache
+        (past 16 s only the windows not seen before are forwarded);
+        otherwise one plain forward. The JAX package's env-gated window TTA
+        is not carried: EXPERIMENTS.md measured it as a streaming
+        regression."""
+        rt = self.runtime
+        if rt.long_chunking:
+            if self._stream_cache is None:
+                self._stream_cache = StreamingEncoderCache(rt)
+            lp, ids, t_valid = self._stream_cache.forward(audio)
+        else:
+            lp, ids, t_valid = rt.forward(audio)
+        deduped = collapse_ctc(ids, rt.blank_id)
+        text = normalize_arabic(self.tokenizer.decode(deduped).strip()) if deduped else ""
+        return TranscribeResult(
+            text=text, token_ids=list(deduped), log_probs=lp, t_valid=int(t_valid),
+        )
 
     def _transcribe_long(self, audio: np.ndarray) -> str:
         """25 s windows with 1 s overlap, decoded independently in one

@@ -116,6 +116,36 @@ def score_token_lists(
     return out
 
 
+def choose_longest_stable_prefix(
+    log_probs: np.ndarray | torch.Tensor,
+    t_valid: int,
+    prefixes: list[list[int]],
+    tolerance: float = 0.12,
+    blank_id: int = BLANK_ID,
+) -> int | None:
+    """Index of the LONGEST prefix whose normalized CTC score stays within
+    `tolerance` of the best feasible score (reference:
+    lib/ctc-rescore.ts:128-147 — used by tracking word progress: prefer the
+    deepest prefix the acoustics still support)."""
+    if not prefixes:
+        return None
+    scores = score_token_lists(log_probs, t_valid, prefixes, blank_id)
+    order = sorted(
+        (i for i in range(len(prefixes)) if math.isfinite(scores[i])),
+        key=lambda i: scores[i],
+    )
+    if not order:
+        return None
+    best_score = scores[order[0]]
+    best = order[0]
+    for i in order:
+        if scores[i] > best_score + tolerance:
+            break
+        if len(prefixes[i]) >= len(prefixes[best]):
+            best = i
+    return best
+
+
 def ctc_rerank(
     log_probs: np.ndarray | torch.Tensor,
     t_valid: int,
