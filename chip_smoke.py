@@ -10,9 +10,11 @@ without the final line):
   2. build       nvcc the three hand-written kernels (in parallel) for
                  sm_90a; ptxas registers / shared memory / spills
   3. kernels     each kernel against its plain PyTorch version on the card
-                 at every shape the paths launch (int8 in both orders of
-                 scaling), with timings of the kernel, the plain version
-                 and a one-call library yardstick
+                 at every shape the paths launch: the int4 and int8 layers
+                 as the paths launch them (bf16 out, bias fused) and the
+                 TPU kernels' f32 functions, with rows bitwise independent
+                 of M; timings of the kernel, the plain version and a
+                 one-call library yardstick
   4. main path   champion-int4 Recognizer(tta=True).predict over wav clips
                  of benchmark/test_corpus (each must match the manifest),
                  plus the >25 s transcribe fallback; launch counters are
@@ -20,18 +22,20 @@ without the final line):
   5. plain path  the same model with the plain ops on the card for one
                  clip: same collapsed greedy ids, max |Δ log-prob| printed
   6. trace       a short and a long clip's forward and predict on the host
-                 clock with the int4 kernel's split-K on and forced off,
-                 interleaved, and each forward under torch.profiler: device
-                 busy share and the kernels that take the device time
+                 clock, and each forward under torch.profiler: device busy
+                 share, the kernels that take the device time, one quantized
+                 matmul launch per product and no split-K sum kernel
   7. streaming   stream6-int8 (int8 Dense): one forward's launches and its
-                 device busy share under torch.profiler, then v1 clips
+                 profile as in "trace", then v1 clips
                  replayed through validate_streaming's
                  RecitationTracker in 300 ms chunks (each must score
                  sequence accuracy 1.0), with per-cycle forward, fusion
                  scoring and feed times; counters zeroed just before the
                  replay and read just after
   8. cache       StreamingEncoderCache on a window over 16 s, cold and
-                 with its tail grown by 1 s, against forward_long
+                 with its tail grown by 1 s, against forward_long (ids,
+                 t_valid, log-probs), and the ops whose row 0 changes with
+                 the batch size at equal input
   9. server      the port's WebSocket server in-process on 127.0.0.1
                  (TILAWA_CHECKPOINT=exports/stream6-int8, tracker engine)
                  and two ws_client streams at once, each of which must get
@@ -90,6 +94,8 @@ INT8_ULP2 = 2.0 ** -6  # scale after (Int8Dense's order), bf16 out: a last-bit f
                        # held to that (+ INT8_TOL · max|ref| for sums that cancel) and
 FLIP_RATE = 1e-2       # under 1% of the elements may differ at all; a product left
                        # unrounded before the scale differs in ~25% (checked below)
+CACHE_TOL = 1e-5    # max|Δ log-prob| of the streaming cache against forward_long: the
+                    # reference's contract (tests/test_runtime_long.py)
 MEL_TOL = 2e-3      # max|Δ log-mel|: direct DFT vs FFT in f32 (tests/test_frontend.py holds the
                     # JAX fused kernel to the same bound against its rfft path)
 
@@ -106,6 +112,7 @@ INT4_SHAPES = (
     ("ctc_head", 512, 1025, 1),
 )
 INT4_LAUNCHES_PER_FORWARD = sum(s[3] for s in INT4_SHAPES)
+NO_BIAS = frozenset({"pos"})   # the one Dense built with use_bias=False
 # stream6-int8 runs the same 189 products as Int8Dense layers
 INT8_LAUNCHES_PER_FORWARD = INT4_LAUNCHES_PER_FORWARD
 M_MAIN = 50          # encoder frames of the 64000-sample (4 s) bucket
@@ -141,7 +148,9 @@ def phase(name: str):
 
 def time_cuda(torch, fn, flush, reps: int = 20, warmup: int = 3) -> float:
     """Median milliseconds of fn() with CUDA events, L2 flushed before each
-    call (the main path finds each layer's weights cold)."""
+    call (the main path finds each layer's weights cold). The flush (a 1 GiB
+    memset, ~0.3 ms on the card) also covers the host's enqueue of fn, so
+    the events time the device and not a host that falls behind."""
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
@@ -156,18 +165,23 @@ def time_cuda(torch, fn, flush, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def int4_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
-    nbytes = m * k * 2 + (k // 2) * n + (-(-k // 32)) * n * 4 + m * n * 4
+def quant_bound_ms(m: int, k: int, n: int, weight_bytes: int, scale_bytes: int,
+                   out_bytes: int, bias: bool) -> tuple[float, str]:
+    """x in bf16, the quantized weights and their scales read once, the bias
+    (f32) read once where the layer has one, the output written once; the
+    products at the bf16 tensor-core rate."""
+    nbytes = m * k * 2 + weight_bytes + scale_bytes + (n * 4 if bias else 0) + m * n * out_bytes
     flops = 2 * m * k * n
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def int8_bound_ms(m: int, k: int, n: int, out_bytes: int) -> tuple[float, str]:
-    nbytes = m * k * 2 + k * n + n * 4 + m * n * out_bytes
-    flops = 2 * m * k * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def int4_bound_ms(m: int, k: int, n: int, out_bytes: int, bias: bool) -> tuple[float, str]:
+    return quant_bound_ms(m, k, n, (k // 2) * n, (-(-k // 32)) * n * 4, out_bytes, bias)
+
+
+def int8_bound_ms(m: int, k: int, n: int, out_bytes: int, bias: bool) -> tuple[float, str]:
+    return quant_bound_ms(m, k, n, k * n, n * 4, out_bytes, bias)
 
 
 def mel_bound_ms(b: int, n: int, t: int, fb_nonzeros: int) -> tuple[float, str]:
@@ -181,27 +195,80 @@ def mel_bound_ms(b: int, n: int, t: int, fb_nonzeros: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bits(torch, t):
+    """The tensor's bit patterns, for bitwise comparison."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def check_rows(torch, what: str, fn, x, ms) -> None:
+    """Row invariance: fn(x[:m]) is bit for bit the first m rows of fn(x)
+    for every m (the sum order of a row must not depend on M)."""
+    full = fn(x)
+    for m in ms:
+        if not torch.equal(bits(torch, fn(x[:m])), bits(torch, full[:m])):
+            raise AssertionError(f"{what}: rows of M={m} differ from the same rows "
+                                 f"of M={x.shape[0]}")
+
+
+def check_layer(torch, what: str, out, ref, ref_nobias, blind) -> tuple[int, int, float]:
+    """A fused bf16 layer epilogue against its plain version. A last-bit
+    flip of the rounded product (f32 sums in another order) moves the
+    pre-bias value u by up to two bf16 ulps (INT8_ULP2·|u|), and the bias
+    add can round that one ulp of y further: each element is held to
+    INT8_ULP2·(|u| + |y|) + INT8_TOL·max|y| and under FLIP_RATE of them may
+    differ at all. `blind`, an epilogue that adds the bias to the unrounded
+    product, must fail the flip gate (None where there is no bias)."""
+    out, ref, u = out.float(), ref.float(), ref_nobias.float()
+    delta = (out - ref).abs()
+    n_flips = int((delta > 0).sum())
+    bound = INT8_ULP2 * (u.abs() + ref.abs()) + INT8_TOL * float(ref.abs().max())
+    if not bool((delta <= bound).all()) or n_flips > FLIP_RATE * delta.numel():
+        raise AssertionError(f"{what}: more than last-bit flips (max|Δ| {float(delta.max())}, "
+                             f"{n_flips} flips)")
+    if blind is not None:
+        blind_flips = int((blind.float() != ref).sum())
+        if not blind_flips > FLIP_RATE * delta.numel():
+            raise AssertionError(f"{what}: flip-rate gate blind to a bias added to the "
+                                 f"unrounded product ({blind_flips} flips)")
+    return n_flips, delta.numel(), float(delta.max())
+
+
 def check_int4(torch, np, quant, flush) -> dict:
+    """int4 at every product of the champion forward: the layer as the path
+    launches it (int4_dense: bf16 out, bias fused where the layer has one)
+    and the TPU kernel's f32 function (int4_matmul), each against its plain
+    version, with rows bitwise independent of M. The JSON entry carries the
+    layer; int4_matmul's numbers ride beside it under f32_out_*."""
     rng = np.random.default_rng(SEED)
     dev = torch.device(DEVICE)
-    max_err, totals = 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    bound_by = set()
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    totals = {kind: dict.fromkeys(keys, 0.0) for kind in ("layer", "f32")}
+    max_err = {"layer": 0.0, "f32": 0.0}
+    flips, elems, bound_by = 0, 0, set()
     for name, k, n, count in INT4_SHAPES:
         packed = torch.from_numpy(rng.integers(0, 256, (k // 2, n), dtype=np.uint8)).to(dev)
         scales = torch.from_numpy(
             (rng.uniform(0.5, 1.5, (k // 32, n)) / (7 * np.sqrt(k))).astype(np.float32)
         ).to(dev)
+        has_bias = name not in NO_BIAS
+        bias = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+                if has_bias else None)
         w_f32 = quant._unpack_int4_torch(packed, scales, 32)
         w_bf16 = w_f32.to(torch.bfloat16)
+
+        x_all = torch.from_numpy(
+            rng.standard_normal((max(path_ms(name)), k)).astype(np.float32)).to(dev)
+        x_all = x_all.to(torch.bfloat16)
+        for what, fn in (("int4_matmul", lambda x: quant.int4_matmul(x, packed, scales)),
+                         ("int4_dense", lambda x: quant.int4_dense(x, packed, scales, bias))):
+            check_rows(torch, f"{what} {name}", fn, x_all, (1, *path_ms(name)))
         for m in path_ms(name):
-            x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
-            x = x.to(torch.bfloat16)
+            x = x_all[:m]
             out = quant.int4_matmul(x, packed, scales)
             ref = quant.int4_matmul_plain(x, packed, scales)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             scale = float(ref.abs().max())
-            max_err = max(max_err, err)
             if not err <= INT4_TOL * scale:
                 raise AssertionError(f"int4 {name} M={m}: max|Δ| {err} > {INT4_TOL} * {scale}")
             # the tolerance must catch a kernel that skips the bf16 rounding of W
@@ -209,50 +276,91 @@ def check_int4(torch, np, quant, flush) -> dict:
             if not unrounded > INT4_TOL * scale:
                 raise AssertionError(f"int4 {name} M={m}: tolerance blind to unrounded W "
                                      f"({unrounded} <= {INT4_TOL} * {scale})")
-            ms = time_cuda(torch, lambda: quant.int4_matmul(x, packed, scales), flush)
-            plain = time_cuda(torch, lambda: quant.int4_matmul_plain(x, packed, scales), flush)
+            # the layer: its epilogue is bit-exact on the kernel's own product
+            # (same body, same sum order), and held to the plain layer
+            layer = quant.int4_dense(x, packed, scales, bias)
+            own = out.to(torch.bfloat16) + (bias.to(torch.bfloat16) if has_bias else 0)
+            if not torch.equal(bits(torch, layer), bits(torch, own.to(torch.bfloat16))):
+                raise AssertionError(f"int4_dense {name} M={m}: the fused epilogue differs "
+                                     f"from cast + bias add of the kernel's f32 product")
+            ref_l = quant.int4_dense_plain(x, packed, scales, bias)
+            blind = ((ref + bias.to(torch.bfloat16).float()).to(torch.bfloat16)
+                     if has_bias else None)
+            n_flips, n_el, err_l = check_layer(
+                torch, f"int4_dense {name} M={m}", layer, ref_l,
+                quant.int4_dense_plain(x, packed, scales), blind)
+            flips, elems = flips + n_flips, elems + n_el
+            max_err["f32"] = max(max_err["f32"], err)
+            max_err["layer"] = max(max_err["layer"], err_l)
+
             lib = time_cuda(torch, lambda: torch.matmul(x, w_bf16), flush)
-            bound, by = int4_bound_ms(m, k, n)
-            print(f"  int4 {name:9s} M={m:3d} K={k:4d} N={n:4d}  max|Δ|={err:.3g} "
-                  f"(ref max {scale:.3g}, unrounded W {unrounded:.3g})  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                  f"torch.matmul(bf16 W) {lib:.4f} ms  bound {bound:.5f} ms ({by})",
-                  flush=True)
-            if m == (2 * M_MAIN - 1 if name == "pos" else M_MAIN):
-                totals["ms"] += count * ms
-                totals["plain_ms"] += count * plain
-                totals["library_ms"] += count * lib
-                totals["bound_ms"] += count * bound
-                bound_by.add(by)
-    print(f"  int4 per forward at M={M_MAIN} ({INT4_LAUNCHES_PER_FORWARD} launches): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()), flush=True)
+            timings = {
+                "layer": (lambda: quant.int4_dense(x, packed, scales, bias),
+                          lambda: quant.int4_dense_plain(x, packed, scales, bias), 2, has_bias),
+                "f32": (lambda: quant.int4_matmul(x, packed, scales),
+                        lambda: quant.int4_matmul_plain(x, packed, scales), 4, False),
+            }
+            line = []
+            for kind, (kernel_fn, plain_fn, out_bytes, with_bias) in timings.items():
+                ms = time_cuda(torch, kernel_fn, flush)
+                plain = time_cuda(torch, plain_fn, flush)
+                bound, by = int4_bound_ms(m, k, n, out_bytes, with_bias)
+                line.append(f"{kind}: kernel {ms:.4f} plain {plain:.4f} bound {bound:.5f} ({by})")
+                if m == (2 * M_MAIN - 1 if name == "pos" else M_MAIN):
+                    for key, v in zip(keys, (ms, plain, lib, bound)):
+                        totals[kind][key] += count * v
+                    if kind == "layer":
+                        bound_by.add(by)
+            print(f"  int4 {name:9s} M={m:3d} K={k:4d} N={n:4d}  f32 max|Δ|={err:.3g} "
+                  f"(ref max {scale:.3g}, unrounded W {unrounded:.3g}); layer flips "
+                  f"{n_flips}/{n_el} max|Δ|={err_l:.3g}  " + "; ".join(line)
+                  + f"; torch.matmul(bf16 W) {lib:.4f} ms", flush=True)
+    for kind, t in totals.items():
+        print(f"  int4 ({kind}) per forward at M={M_MAIN} ({INT4_LAUNCHES_PER_FORWARD} launches): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items()), flush=True)
+    print(f"  int4 (layer) last-bit flip rate {flips}/{elems} = {flips / elems:.3g}; rows "
+          f"bitwise independent of M", flush=True)
     return {
         "name": "int4_matmul", "route": "cuda",
-        "source": "tilawa_tpu_torch/csrc/int4_matmul.cu",
+        "source": "tilawa_tpu_torch/csrc/quant_matmul.cuh",
         "replaces": "tilawa_tpu/ops/quant.py:131",
-        "max_abs_err": max_err, **totals,
+        "max_abs_err": max_err["layer"], **totals["layer"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
+        "f32_out_max_abs_err": max_err["f32"],
+        **{f"f32_out_{k}": v for k, v in totals["f32"].items()},
+        "flip_rate": flips / elems,
     }
 
 
 def check_int8(torch, np, quant, flush) -> dict:
-    """Both orders of scaling at every product of the streaming forward.
-    The JSON entry carries Int8Dense's order (what the path launches); the
-    _int8_kernel order's numbers ride beside it under scale_in_w_*."""
+    """Both orders of scaling at every product of the streaming forward,
+    rows bitwise independent of M. The JSON entry carries Int8Dense's order
+    with the bias fused where the layer has one (what the path launches);
+    the _int8_kernel order's numbers ride beside it under scale_in_w_*."""
     rng = np.random.default_rng(SEED + 2)
     dev = torch.device(DEVICE)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     totals = {order: dict.fromkeys(keys, 0.0) for order in ("after", "in_w")}
     max_err = {"after": 0.0, "in_w": 0.0}
-    flips, elems, bound_by = 0, 0, set()
+    flips, elems, bias_flips, bias_elems, bound_by = 0, 0, 0, 0, set()
     for name, k, n, count in INT4_SHAPES:
         q, scales = quant.quantize_int8(
             (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32))
         q, scales = torch.from_numpy(q).to(dev), torch.from_numpy(scales).to(dev)
+        has_bias = name not in NO_BIAS
+        bias = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+                if has_bias else None)
         w_f32 = q.float() * scales
         w_bf16 = w_f32.to(torch.bfloat16)
+
+        x_all = torch.from_numpy(
+            rng.standard_normal((max(path_ms(name)), k)).astype(np.float32)).to(dev)
+        x_all = x_all.to(torch.bfloat16)
+        for what, fn in (("int8_matmul", lambda x: quant.int8_matmul(x, q, scales)),
+                         ("int8_dense", lambda x: quant.int8_dense(x, q, scales, bias))):
+            check_rows(torch, f"{what} {name}", fn, x_all, (1, *path_ms(name)))
         for m in path_ms(name):
-            x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
-            x = x.to(torch.bfloat16)
+            x = x_all[:m]
             # scale in W: f32 out, held like int4
             out = quant.int8_matmul(x, q, scales)
             ref = quant.int8_matmul_plain(x, q, scales)
@@ -265,7 +373,7 @@ def check_int8(torch, np, quant, flush) -> dict:
             if not unrounded > INT8_TOL * scale:
                 raise AssertionError(f"int8 {name} M={m}: tolerance blind to unrounded W "
                                      f"({unrounded} <= {INT8_TOL} * {scale})")
-            # scale after: bf16 out, last-bit flips only
+            # scale after, no bias: bf16 out, last-bit flips only
             out_d = quant.int8_dense(x, q, scales).float()
             ref_d = quant.int8_dense_plain(x, q, scales).float()
             torch.cuda.synchronize()
@@ -278,27 +386,35 @@ def check_int8(torch, np, quant, flush) -> dict:
                                      f"flips (max|Δ| {float(delta.max())}, {n_flips} flips)")
             # the flip-rate gate must catch a product left unrounded before the scale
             acc = torch.matmul(x.float(), q.float())
-            unrounded_flips = int(((acc * scales.to(torch.bfloat16).float()).to(torch.bfloat16)
-                                   .float() != ref_d).sum())
+            s_bf16 = scales.to(torch.bfloat16).float()
+            unrounded_flips = int(((acc * s_bf16).to(torch.bfloat16).float() != ref_d).sum())
             if not unrounded_flips > FLIP_RATE * delta.numel():
                 raise AssertionError(f"int8 {name} M={m}: flip-rate gate blind to an unrounded "
                                      f"product ({unrounded_flips} flips)")
+            # the layer with its bias fused
+            ref_l = quant.int8_dense_plain(x, q, scales, bias)
+            blind = (((acc.to(torch.bfloat16).float() * s_bf16) + bias.to(torch.bfloat16).float())
+                     .to(torch.bfloat16) if has_bias else None)
+            b_flips, b_el, err_l = check_layer(
+                torch, f"int8_dense {name} M={m} (bias)",
+                quant.int8_dense(x, q, scales, bias), ref_l, ref_d, blind)
             flips, elems = flips + n_flips, elems + delta.numel()
+            bias_flips, bias_elems = bias_flips + b_flips, bias_elems + b_el
             max_err["in_w"] = max(max_err["in_w"], err_w)
-            max_err["after"] = max(max_err["after"], float(delta.max()))
+            max_err["after"] = max(max_err["after"], float(delta.max()), err_l)
 
             timings = {
                 "in_w": (lambda: quant.int8_matmul(x, q, scales),
-                         lambda: quant.int8_matmul_plain(x, q, scales), 4),
-                "after": (lambda: quant.int8_dense(x, q, scales),
-                          lambda: quant.int8_dense_plain(x, q, scales), 2),
+                         lambda: quant.int8_matmul_plain(x, q, scales), 4, False),
+                "after": (lambda: quant.int8_dense(x, q, scales, bias),
+                          lambda: quant.int8_dense_plain(x, q, scales, bias), 2, has_bias),
             }
             lib = time_cuda(torch, lambda: torch.matmul(x, w_bf16), flush)
             line = []
-            for order, (kernel_fn, plain_fn, out_bytes) in timings.items():
+            for order, (kernel_fn, plain_fn, out_bytes, with_bias) in timings.items():
                 ms = time_cuda(torch, kernel_fn, flush)
                 plain = time_cuda(torch, plain_fn, flush)
-                bound, by = int8_bound_ms(m, k, n, out_bytes)
+                bound, by = int8_bound_ms(m, k, n, out_bytes, with_bias)
                 line.append(f"{order}: kernel {ms:.4f} plain {plain:.4f} bound {bound:.5f} ({by})")
                 if m == (2 * M_MAIN - 1 if name == "pos" else M_MAIN):
                     for key, v in zip(keys, (ms, plain, lib, bound)):
@@ -308,21 +424,23 @@ def check_int8(torch, np, quant, flush) -> dict:
             print(f"  int8 {name:9s} M={m:3d} K={k:4d} N={n:4d}  scale-in-W max|Δ|={err_w:.3g} "
                   f"(ref max {scale:.3g}, unrounded W {unrounded:.3g}); scale-after flips "
                   f"{n_flips}/{delta.numel()} max|Δ|={float(delta.max()):.3g} (unrounded product "
-                  f"{unrounded_flips})  "
+                  f"{unrounded_flips}), with bias {b_flips} flips max|Δ|={err_l:.3g}  "
                   + "; ".join(line) + f"; torch.matmul(bf16 W) {lib:.4f} ms", flush=True)
     for order, t in totals.items():
         print(f"  int8 ({order}) per forward at M={M_MAIN} ({INT8_LAUNCHES_PER_FORWARD} launches): "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items()), flush=True)
-    print(f"  int8 (after) last-bit flip rate {flips}/{elems} = {flips / elems:.3g}", flush=True)
+    print(f"  int8 (after) last-bit flip rate {flips}/{elems} = {flips / elems:.3g}, with bias "
+          f"{bias_flips}/{bias_elems} = {bias_flips / bias_elems:.3g}; rows bitwise "
+          f"independent of M", flush=True)
     return {
         "name": "int8_matmul", "route": "cuda",
-        "source": "tilawa_tpu_torch/csrc/int8_matmul.cu",
+        "source": "tilawa_tpu_torch/csrc/quant_matmul.cuh",
         "replaces": "tilawa_tpu/ops/quant.py:150",
         "max_abs_err": max_err["after"], **totals["after"],
         "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
         "scale_in_w_max_abs_err": max_err["in_w"],
         **{f"scale_in_w_{k}": v for k, v in totals["in_w"].items()},
-        "flip_rate": flips / elems,
+        "flip_rate": flips / elems, "flip_rate_with_bias": bias_flips / bias_elems,
     }
 
 
@@ -445,11 +563,87 @@ def streaming(torch, kernels, rerank, validate_streaming, recognizer) -> dict:
     return launches
 
 
-def cache_check(np, load_audio, runtime, cache_cls) -> None:
+def batch_variance(torch, np, runtime, frontend, audio) -> dict[str, float]:
+    """Which ops of the forward give row 0 another value at batch 2 than at
+    batch 1, each on the same input. The first two 16 s windows of `audio`
+    go through the model as one [2, LONG_CHUNK] batch, as forward_long and
+    the cache forward them, with every module's inputs and output kept;
+    then each module runs again on row 0 of its own inputs alone. A module
+    whose row 0 differs while none of its submodules' does holds the op in
+    its own code. The frontend (outside any module) is checked the same way,
+    the log-mel kernel alone and with the normalization. Prints and returns
+    {module: max |Δ|} of those origins."""
+    from tilawa_tpu_torch.pipeline.runtime import LONG_CHUNK, LONG_STEP
+
+    model = runtime.model
+    pieces = [audio[:LONG_CHUNK], audio[LONG_STEP:LONG_STEP + LONG_CHUNK]]
+    kept: list = []
+
+    def hook(name):
+        def fn(module, args, out):
+            out = out[0] if isinstance(out, tuple) else out
+            kept.append((name, module, [a.clone() if torch.is_tensor(a) else a for a in args],
+                         out.clone()))
+        return fn
+
+    def row0(a):
+        return a[:1] if torch.is_tensor(a) and a.dim() and a.shape[0] == 2 else a
+
+    def differs(a, b) -> float:
+        if torch.equal(bits(torch, a), bits(torch, b)):
+            return 0.0
+        return max(float((a.float() - b.float()).abs().max()), float("1e-45"))
+
+    handles = [m.register_forward_hook(hook(name)) for name, m in model.named_modules() if name]
+    try:
+        runtime._apply_upload(pieces, LONG_CHUNK, 2)
+    finally:
+        for h in handles:
+            h.remove()
+    deltas = {}
+    with torch.inference_mode():
+        batch = np.zeros((2, LONG_CHUNK), np.int16)
+        for i, piece in enumerate(pieces):
+            batch[i, : len(piece)] = np.clip(piece * 32768.0, -32768, 32767)
+        audio_t = torch.from_numpy(batch).to(DEVICE).float() / 32768.0
+        lengths = torch.tensor([len(piece) for piece in pieces], dtype=torch.int32,
+                               device=DEVICE)
+        tables = model.tables()
+        pre = torch.cat([audio_t[:, :1], audio_t[:, 1:] - frontend.PREEMPH * audio_t[:, :-1]], 1)
+        deltas["(log-mel kernel)"] = differs(frontend.fused_log_mel(pre, tables)[:1],
+                                             frontend.fused_log_mel(pre[:1], tables))
+        feats2, _ = frontend.log_mel_spectrogram(audio_t, lengths, tables)
+        feats1, _ = frontend.log_mel_spectrogram(audio_t[:1], lengths[:1], tables)
+        deltas["(frontend: log-mel + normalization)"] = differs(feats2[:1], feats1)
+        for name, module, args, out in kept:
+            if out.dim() and out.shape[0] == 2:
+                one = module(*(row0(a) for a in args))
+                one = one[0] if isinstance(one, tuple) else one
+                deltas[name] = differs(out[:1], one)
+    varying = {n: d for n, d in deltas.items() if d > 0}
+    origins = {n: d for n, d in varying.items()
+               if not any(o.startswith(n + ".") for o in varying)}
+    kinds: dict[str, list] = {}
+    for name, d in origins.items():
+        kind = type(model.get_submodule(name)).__name__ if not name.startswith("(") else name
+        kinds.setdefault(kind, []).append((name, d))
+    for kind, rows in kinds.items():
+        worst = max(rows, key=lambda r: r[1])
+        print(f"    batch 2 vs 1 at equal input, row 0 differs in {len(rows)} {kind} "
+              f"(own code; e.g. {rows[0][0]}; max|Δ| {worst[1]:.3g} in {worst[0]})", flush=True)
+    print(f"    {len(origins)} origins, {len(varying)} of {len(deltas)} modules vary with the "
+          f"batch size", flush=True)
+    return origins
+
+
+def cache_check(np, load_audio, runtime, cache_cls) -> float:
     """A window over 16 s through StreamingEncoderCache cold, then with its
-    tail grown by 1 s: t_valid and ids equal to forward_long's."""
+    tail grown by 1 s: t_valid and ids equal to forward_long's and the
+    log-probs within CACHE_TOL (the reference's contract,
+    tests/test_runtime_long.py). Returns the largest |Δ log-prob|."""
     audio = load_audio(CORPUS / "long_033_056.wav")
     cache = cache_cls(runtime)
+    worst = 0.0
     for seconds in (17.0, 18.0):
         window = audio[: int(seconds * 16000)]
         lp_c, ids_c, tv_c = cache.forward(window)
@@ -461,8 +655,10 @@ def cache_check(np, load_audio, runtime, cache_cls) -> None:
               f"misses {cache.misses}", flush=True)
         if not same:
             raise AssertionError("the streaming cache disagrees with forward_long")
+        worst = max(worst, delta)
     if cache.hits < 1:
         raise AssertionError("the grown window did not reuse the cached chunk")
+    return worst
 
 
 def serve(np, manifest) -> None:
@@ -528,9 +724,12 @@ def host_ms(runtime, recognizer, audio) -> tuple[float, float]:
     return fwd, (time.perf_counter() - t) * 1e3
 
 
-def device_busy(torch, runtime, audio, fwd_ms: float, top: int) -> None:
+def device_busy(torch, runtime, audio, fwd_ms: float, top: int) -> dict | None:
     """One forward under torch.profiler: device busy time, its share of the
-    host-clock forward, and the `top` kernels by device time."""
+    host-clock forward, the `top` kernels by device time, and per forward
+    the launches of the quantized matmul and of any split-K sum kernel and
+    the aten::copy_ and aten::add calls. None if the profiler saw no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -544,39 +743,44 @@ def device_busy(torch, runtime, audio, fwd_ms: float, top: int) -> None:
     busy_ms = sum(device_us(e) for e in stats) / 1e3
     if busy_ms <= 0:
         print("    profiler saw no device time: device busy share not measured", flush=True)
-        return
+        return None
+    counts = {
+        "matmul_kernels": sum(e.count for e in stats if "quant_matmul_kernel" in e.key),
+        "matmul_ms": sum(device_us(e) for e in stats if "quant_matmul_kernel" in e.key) / 1e3,
+        "splitk_kernels": sum(e.count for e in stats if "splitk" in e.key.lower()),
+        "copy_": sum(e.count for e in stats if e.key == "aten::copy_"),
+        "add": sum(e.count for e in stats if e.key == "aten::add"),
+    }
     print(f"    profiled forward: device busy {busy_ms:.3f} ms "
-          f"= {100 * busy_ms / fwd_ms:.1f}% of the median forward", flush=True)
+          f"= {100 * busy_ms / fwd_ms:.1f}% of the median forward; quant matmul "
+          f"{counts['matmul_kernels']} launches {counts['matmul_ms']:.3f} ms, split-K sum "
+          f"kernels {counts['splitk_kernels']}, aten::copy_ {counts['copy_']}, aten::add "
+          f"{counts['add']}", flush=True)
     for e in sorted(stats, key=device_us, reverse=True)[:top]:
         print(f"    {device_us(e) / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}", flush=True)
+    return counts
 
 
-def trace(torch, quant, runtime, recognizer, clips, reps: int = 12) -> None:
-    """Where a clip's time goes, and what split-K does to it end to end:
-    `reps` forwards and predicts of each clip with the int4 kernel's default
-    split-K and as many with splits forced to 1, alternated call by call in
-    the order split, single, single, split so that drift of the host's
-    speed falls on both alike. Measured and printed; no gate."""
-    default_splits = quant._MAX_SPLITS
-    order = ("split-K", "splits=1", "splits=1", "split-K")
-    try:
-        for name, audio in clips:
-            times = {"split-K": ([], []), "splits=1": ([], [])}
-            host_ms(runtime, recognizer, audio)
-            for i in range(2 * reps):
-                variant = order[i % 4]
-                quant._MAX_SPLITS = default_splits if variant == "split-K" else 1
-                fwd, pred = host_ms(runtime, recognizer, audio)
-                times[variant][0].append(fwd)
-                times[variant][1].append(pred)
-            for variant, (fwd, pred) in times.items():
-                quant._MAX_SPLITS = default_splits if variant == "split-K" else 1
-                fwd_ms, pred_ms = sorted(fwd)[len(fwd) // 2], sorted(pred)[len(pred) // 2]
-                print(f"  {name} {variant}: median of {len(fwd)}: forward {fwd_ms:.2f} ms "
-                      f"(host clock, ends in a host read), predict {pred_ms:.2f} ms", flush=True)
-                device_busy(torch, runtime, audio, fwd_ms, top=8 if variant == "split-K" else 2)
-    finally:
-        quant._MAX_SPLITS = default_splits
+def check_profile(counts: dict | None, what: str) -> None:
+    """One quantized-matmul launch per product and no split-K sum kernel."""
+    if counts is None:
+        return
+    if counts["matmul_kernels"] != INT4_LAUNCHES_PER_FORWARD or counts["splitk_kernels"]:
+        raise AssertionError(f"{what}: the profiler saw {counts['matmul_kernels']} quantized "
+                             f"matmul and {counts['splitk_kernels']} split-K sum launches "
+                             f"(want {INT4_LAUNCHES_PER_FORWARD} and 0)")
+
+
+def trace(torch, runtime, recognizer, clips, reps: int = 12) -> None:
+    """Where a clip's time goes: `reps` forwards and predicts of each clip on
+    the host clock, then one forward under torch.profiler."""
+    for name, audio in clips:
+        host_ms(runtime, recognizer, audio)
+        fwd, pred = zip(*(host_ms(runtime, recognizer, audio) for _ in range(reps)))
+        fwd_ms, pred_ms = sorted(fwd)[reps // 2], sorted(pred)[reps // 2]
+        print(f"  {name}: median of {reps}: forward {fwd_ms:.2f} ms (host clock, ends in a "
+              f"host read), predict {pred_ms:.2f} ms", flush=True)
+        check_profile(device_busy(torch, runtime, audio, fwd_ms, top=8), name)
 
 
 def run() -> int:
@@ -617,7 +821,7 @@ def run() -> int:
                 if any(w in line for w in ("registers", "spill", "smem", "Compiling")):
                     print(f"    {line.strip()}", flush=True)
 
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEVICE)
     with phase("kernels vs plain"):
         entries = [
             check_int4(torch, np, quant, flush),
@@ -693,7 +897,7 @@ def run() -> int:
 
     trace_clips = [(c, load_audio(CORPUS / c)) for c in (CLIPS[1], CLIPS[-1])]
     with phase("trace"):
-        trace(torch, quant, runtime, recognizer, trace_clips)
+        trace(torch, runtime, recognizer, trace_clips)
 
     with phase("streaming"):
         stream_rt = load_runtime(STREAM_BUNDLE, DEVICE, long_chunking=False)
@@ -719,13 +923,16 @@ def run() -> int:
         fwd_ms = sorted(fwd)[len(fwd) // 2]
         print(f"  {CLIPS[1]} stream6-int8 forward: median of 7 {fwd_ms:.2f} ms (host clock, "
               f"ends in a host read)", flush=True)
-        device_busy(torch, stream_rt, audio, fwd_ms, top=6)
+        check_profile(device_busy(torch, stream_rt, audio, fwd_ms, top=6), "stream6-int8")
         stream_launches = streaming(torch, kernels, rerank, validate_streaming, stream_rec)
         entries[2]["launches"] = stream_launches["int8_matmul"]
 
     with phase("cache"):
-        cache_check(np, load_audio, stream_rt, StreamingEncoderCache)
+        worst = cache_check(np, load_audio, stream_rt, StreamingEncoderCache)
+        batch_variance(torch, np, stream_rt, frontend, load_audio(CORPUS / "long_033_056.wav"))
         del stream_rt, stream_rec
+        if not worst <= CACHE_TOL:
+            raise AssertionError(f"cache vs forward_long: max|Δ log-prob| {worst} > {CACHE_TOL}")
 
     with phase("server"):
         serve(np, manifest)

@@ -11,7 +11,14 @@ and under 1% of the elements different (the bf16 rounding of an f32 sum
 taken in another order flips its last bit, and the scale multiply can
 widen that flip to two ulps of the output); log-mel, 2e-3 (direct DFT vs
 FFT in f32, the bound tests/test_frontend.py holds the JAX fused kernel
-to)."""
+to). Fused layer epilogues with a bias (int4_dense, int8_dense): each
+element within two bf16 ulps of the pre-bias value plus two of the output,
+2^-6·(|u| + |ref|), plus 1e-5·max|ref|, under 1% of the elements different
+(the bias add can carry a last-bit flip of the rounded product one output
+ulp further); int4_dense is also bit-equal to the cast and bias add of
+int4_matmul's own f32 output (same body, same sum order). Row invariance:
+bitwise. The streaming cache against forward_long on stream6-int8: 1e-5,
+the reference's contract (tests/test_runtime_long.py)."""
 
 import dataclasses
 
@@ -93,7 +100,7 @@ def test_champion_kernel_path_matches_plain_path(cuda):
 
 INT8_SHAPES = [
     (50, 2560, 512), (99, 512, 512), (50, 512, 1024), (400, 512, 2048),
-    (50, 2048, 512), (50, 512, 1025), (1, 32, 3), (37, 64, 130),
+    (50, 2048, 512), (50, 512, 1025), (1, 32, 3), (37, 64, 130), (5, 36, 48),
 ]
 
 
@@ -157,3 +164,94 @@ def test_stream6_kernel_path_matches_plain_path(cuda):
     assert kernels.LAUNCHES == {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 189}
     assert t_k == t_p
     assert collapse_ctc(ids_k, 1024) == collapse_ctc(ids_p, 1024)
+
+
+# (K, N) of every product the paths launch and the rows M they run at
+# (chip_smoke.py INT4_SHAPES; pos at the 2T-1 relative positions)
+PATH_SHAPES = [(2560, 512), (512, 512), (512, 1024), (512, 2048), (2048, 512), (512, 1025)]
+PATH_MS = (1, 50, 100, 200, 400)
+POS_MS = (1, 99, 199, 399, 799)
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _layer_case(cuda, kind, k, n, m, seed):
+    """(quantized-matmul function of x, x [m, K] bf16) for one path shape."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    if kind.startswith("int4"):
+        packed, scales = (torch.from_numpy(a).to(cuda) for a in quant.pack_int4(w))
+        if kind == "int4_matmul":
+            return (lambda v: quant.int4_matmul(v, packed, scales)), x.to(torch.bfloat16)
+        return (lambda v: quant.int4_dense(v, packed, scales, bias)), x.to(torch.bfloat16)
+    q, scales = (torch.from_numpy(a).to(cuda) for a in quant.quantize_int8(w))
+    if kind == "int8_matmul":
+        return (lambda v: quant.int8_matmul(v, q, scales)), x.to(torch.bfloat16)
+    return (lambda v: quant.int8_dense(v, q, scales, bias)), x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["int4_matmul", "int4_dense", "int8_matmul", "int8_dense"])
+@pytest.mark.parametrize("k,n,ms", [(k, n, PATH_MS) for k, n in PATH_SHAPES]
+                         + [(512, 512, POS_MS)])
+def test_rows_bitwise_independent_of_m(cuda, kind, k, n, ms):
+    fn, x = _layer_case(cuda, kind, k, n, max(ms), k + n)
+    full = fn(x)
+    for m in ms:
+        assert torch.equal(_bits(fn(x[:m])), _bits(full[:m])), f"M={m}"
+
+
+def _held_as_layer(out, ref, ref_nobias):
+    out, ref, u = out.float(), ref.float(), ref_nobias.float()
+    delta = (out - ref).abs()
+    bound = 2.0 ** -6 * (u.abs() + ref.abs()) + 1e-5 * float(ref.abs().max())
+    assert bool((delta <= bound).all())
+    assert float((delta > 0).float().mean()) < 1e-2
+
+
+@pytest.mark.parametrize("m,k,n", [(50, 2560, 512), (99, 512, 512), (400, 512, 2048),
+                                   (50, 512, 1025), (37, 64, 130)])
+def test_fused_epilogues_match_plain(cuda, m, k, n):
+    rng = np.random.default_rng(m * n)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    packed, scales = (torch.from_numpy(a).to(cuda) for a in quant.pack_int4(w))
+    kernels.reset_launches()
+    out = quant.int4_dense(x, packed, scales, bias)
+    f32 = quant.int4_matmul(x, packed, scales)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    own = f32.to(torch.bfloat16) + bias.to(torch.bfloat16)
+    assert torch.equal(_bits(out), _bits(own))
+    _held_as_layer(out, quant.int4_dense_plain(x, packed, scales, bias),
+                   quant.int4_dense_plain(x, packed, scales))
+    f32_bias = quant.int4_dense(x, packed, scales, bias, torch.float32)
+    assert torch.equal(_bits(f32_bias), _bits(f32 + bias))
+
+    q, s8 = (torch.from_numpy(a).to(cuda) for a in quant.quantize_int8(w))
+    out8 = quant.int8_dense(x, q, s8, bias)
+    assert out8.dtype == torch.bfloat16 and out8.shape == (m, n)
+    _held_as_layer(out8, quant.int8_dense_plain(x, q, s8, bias), quant.int8_dense_plain(x, q, s8))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"int4_matmul": 3, "log_mel": 0, "int8_matmul": 1}
+
+
+def test_streaming_cache_matches_forward_long(cuda):
+    from tilawa_tpu_torch.data.audio import load_audio
+    from tilawa_tpu_torch.eval.experiments import load_runtime
+    from tilawa_tpu_torch.io.bundle import EXPORTS_DIR
+    from tilawa_tpu_torch.pipeline.runtime import StreamingEncoderCache
+
+    runtime = load_runtime(EXPORTS_DIR / "stream6-int8", cuda, long_chunking=False)
+    audio = load_audio(EXPORTS_DIR.parent / "benchmark" / "test_corpus" / "long_033_056.wav")
+    cache = StreamingEncoderCache(runtime)
+    for seconds in (17.0, 18.0):   # cold, then the tail grown: a batch of 1 against 2
+        window = audio[: int(seconds * 16000)]
+        lp_c, ids_c, tv_c = cache.forward(window)
+        lp_f, ids_f, tv_f = runtime.forward_long(window)
+        assert tv_c == tv_f and np.array_equal(ids_c, ids_f)
+        assert float((lp_c[:tv_c] - lp_f[:tv_f]).abs().max()) <= 1e-5
+    assert cache.hits >= 1

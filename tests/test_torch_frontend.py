@@ -85,3 +85,17 @@ def test_cpu_tensor_takes_plain_path_without_launch():
 def test_other_devices_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         tf.fused_log_mel(torch.empty((1, 8000), device="meta"), tf.mel_tables("meta"))
+
+
+def test_features_of_a_row_do_not_depend_on_the_batch():
+    """A row's normalized features are bitwise the same alone and batched
+    with other rows (its time statistics are summed row by row)."""
+    rng = np.random.default_rng(4)
+    audio = torch.from_numpy((rng.standard_normal((3, 48000)) * 0.1).astype(np.float32))
+    lengths = torch.tensor([48000, 30000, 41000], dtype=torch.int32)
+    tables = tf.mel_tables()
+    batched, lens = tf.log_mel_spectrogram(audio, lengths, tables)
+    for b in range(3):
+        alone, lens_b = tf.log_mel_spectrogram(audio[b:b + 1], lengths[b:b + 1], tables)
+        assert torch.equal(lens_b, lens[b:b + 1])
+        assert torch.equal(alone.view(torch.int32), batched[b:b + 1].view(torch.int32))

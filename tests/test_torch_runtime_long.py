@@ -142,3 +142,33 @@ def test_stitched_timeline_vs_full(runtime):
     assert np.all(np.isfinite(row))
     np.testing.assert_allclose(np.exp(row).sum(axis=-1), 1.0, atol=1e-3)
     assert len(ids_c) == tv_c
+
+
+@pytest.mark.parametrize("value,on", [("1", True), ("", False), ("0", False), ("false", False)])
+def test_int16_upload_knob_is_read_at_construction(variables, monkeypatch, value, on):
+    monkeypatch.setenv("TILAWA_INT16_UPLOAD", value)
+    rt = EncoderRuntime(FastConformerConfig.small(), variables, device="cpu")
+    monkeypatch.setenv("TILAWA_INT16_UPLOAD", "0" if on else "1")
+    assert rt.int16_upload is on
+
+
+def test_f32_upload_matches_jax(variables, runtime, monkeypatch):
+    """TILAWA_INT16_UPLOAD=0: forward and forward_long upload f32 audio, as
+    the JAX package's do; log-probs within 1e-4 of JAX's with equal ids (the
+    tolerance of the int16 parity tests above), and not those of the int16
+    upload."""
+    monkeypatch.setenv("TILAWA_INT16_UPLOAD", "0")
+    ours = EncoderRuntime(FastConformerConfig.small(), variables, device="cpu", long_chunking=True)
+    ref = jrt.EncoderRuntime(jfc.FastConformerConfig.small(use_pallas=False), variables,
+                             long_chunking=True)
+    assert not ours.int16_upload and not ref._int16_upload
+    rng = np.random.default_rng(5)
+    for n in (40000, 300000):   # one bucketed forward, one chunked forward_long
+        audio = rng.normal(scale=0.1, size=n).astype(np.float32)
+        lp, ids, t_valid = ours.forward(audio)
+        lp_ref, ids_ref, t_ref = ref.forward(audio)
+        assert t_valid == t_ref
+        np.testing.assert_array_equal(ids, np.asarray(ids_ref))
+        np.testing.assert_allclose(lp[:t_valid].numpy(), np.asarray(lp_ref)[:t_ref], atol=1e-4)
+        lp16, _ids16, t16 = runtime.forward(audio)   # the int16 upload
+        assert t16 == t_valid and not torch.equal(lp16[:t16], lp[:t_valid])

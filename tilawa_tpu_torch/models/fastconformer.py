@@ -7,17 +7,18 @@ flax parameter names, so a bundle maps onto `state_dict()` one leaf per key
 
 Numerics follow flax's rounding points in the compute dtype (bfloat16 for
 the champion): Int4Dense rounds its f32 product to the dtype and then adds
-the rounded bias; LayerNorm (eps 1e-6) takes its statistics in f32
-(E[x²] - E[x]²) and casts its output; MaskedBatchNorm uses the running
-stats in f32 (eps 1e-5); attention scores are divided in f32 (flax divides
-the bf16 sum by a numpy float64 scalar, which promotes), keys are masked with
--1e30 and the softmax runs in f32 before the cast; the head log-softmax is
-f32. Convolutions run in the dtype with the bias added after the rounded
-conv output, as flax's nn.Conv does.
+the rounded bias (int4_dense, one launch on the card); LayerNorm (eps 1e-6)
+takes its statistics in f32 (E[x²] - E[x]²) and casts its output;
+MaskedBatchNorm uses the running stats in f32 (eps 1e-5); attention scores
+are divided in f32 (flax divides the bf16 sum by a numpy float64 scalar,
+which promotes), keys are masked with -1e30 and the softmax runs in f32
+before the cast; the head log-softmax is f32. Convolutions run in the dtype
+with the bias added after the rounded conv output, as flax's nn.Conv does.
 
 Int8Dense keeps flax's order: the bf16 product is rounded, then multiplied
-by the bf16 column scales (int8_dense); quant="mixed" puts the feed-forward
-pair (MIXED_INT4_NAMES) on Int4Dense and every other Dense on Int8Dense.
+by the bf16 column scales, then the rounded bias is added (int8_dense, one
+launch on the card); quant="mixed" puts the feed-forward pair
+(MIXED_INT4_NAMES) on Int4Dense and every other Dense on Int8Dense.
 
 Only the inference path is ported: no dropout, SpecAugment, remat or batch
 statistics updates.
@@ -38,8 +39,8 @@ from torch import nn
 from tilawa_tpu_torch.ops.frontend import MelTables, log_mel_spectrogram, mel_tables
 from tilawa_tpu_torch.ops.quant import (
     INT4_BLOCK,
-    int4_matmul,
-    int4_matmul_plain,
+    int4_dense,
+    int4_dense_plain,
     int8_dense,
     int8_dense_plain,
 )
@@ -148,11 +149,8 @@ class Int4Dense(nn.Module):
         self.register_buffer("bias", _zeros(n) if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        matmul = int4_matmul if self.cfg.use_pallas else int4_matmul_plain
-        y = matmul(x, self.packed, self.scales).to(self.cfg.dtype)
-        if self.bias is not None:
-            y = y + self.bias.to(self.cfg.dtype)
-        return y
+        dense = int4_dense if self.cfg.use_pallas else int4_dense_plain
+        return dense(x, self.packed, self.scales, self.bias, self.cfg.dtype)
 
 
 class Int8Dense(nn.Module):
@@ -171,13 +169,12 @@ class Int8Dense(nn.Module):
         dt = self.cfg.dtype
         if dt == torch.bfloat16:
             dense = int8_dense if self.cfg.use_pallas else int8_dense_plain
-            y = dense(x, self.q, self.scales)
-        elif x.device.type == "cpu" or not self.cfg.use_pallas:
-            # Other dtypes (the small f32 test configs) take flax's order in
-            # that dtype; the kernel computes the bf16 model only.
-            y = torch.matmul(x.to(dt), self.q.to(dt)) * self.scales.to(dt)
-        else:
+            return dense(x, self.q, self.scales, self.bias)
+        if x.device.type != "cpu" and self.cfg.use_pallas:
             raise ValueError(f"the int8 kernel computes bfloat16 models, not {dt}")
+        # Other dtypes (the small f32 test configs) take flax's order in
+        # that dtype; the kernel computes the bf16 model only.
+        y = torch.matmul(x.to(dt), self.q.to(dt)) * self.scales.to(dt)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y

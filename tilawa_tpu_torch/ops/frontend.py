@@ -163,6 +163,16 @@ def fused_log_mel(
     return out
 
 
+def _time_sums(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, F] → [B, 1, F] sums over time, one batch row at a time: a
+    reduction over the whole batch picks its launch shape, and with it the
+    order of its f32 sums, from B, so a row's statistics (and every layer
+    after them) would change with the rows batched beside it."""
+    if x.shape[0] == 1:
+        return x.sum(dim=1, keepdim=True)
+    return torch.cat([row.sum(dim=1, keepdim=True) for row in x.split(1)])
+
+
 def log_mel_spectrogram(
     audio: torch.Tensor,     # [B, N] float32
     lengths: torch.Tensor,   # [B] int — valid sample counts
@@ -187,8 +197,8 @@ def log_mel_spectrogram(
 
     cnt = torch.clamp(feat_lengths[:, None, None].to(logmel.dtype), min=1.0)
     masked = torch.where(mask, logmel, 0.0)
-    mean = masked.sum(dim=1, keepdim=True) / cnt
-    var = (torch.where(mask, logmel - mean, 0.0) ** 2).sum(dim=1, keepdim=True) / cnt
+    mean = _time_sums(masked) / cnt
+    var = _time_sums(torch.where(mask, logmel - mean, 0.0) ** 2) / cnt
     std = torch.sqrt(var)
     normed = torch.where(mask, (logmel - mean) / torch.clamp(std, min=1e-10), 0.0)
     return normed.to(torch.float32), feat_lengths

@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels: build, load and count launches.
 
-Each `csrc/<name>.cu` has a plain `extern "C"` launcher and is compiled by
+Each `csrc/<name>.cu` has plain `extern "C"` launchers and is compiled by
 `nvcc` for sm_90a into its own shared library under the package's ignored
-`_build/` directory, at first use, keyed by a hash of its source and the
-flags (a changed source builds anew; an unchanged one is reused). The
+`_build/` directory, at first use, keyed by a hash of its source, of every
+header it includes from `csrc/` and of the flags (a changed source or
+header builds anew; an unchanged one is reused). The
 library is loaded with ctypes. Nothing here runs at import: machines
 without nvcc (the CPU test tier) import every module and never build.
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,9 +58,25 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """`csrc/<name>.cu` and the local headers it includes, transitively."""
+    found, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

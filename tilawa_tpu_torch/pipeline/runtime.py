@@ -4,10 +4,12 @@ Port of tilawa_tpu/pipeline/runtime.py, with the same duck-typed contract
 the Recognizer and the streaming tracker use: forward, forward_batch,
 forward_batch_async, forward_long, log_probs, log_probs_batch, blank_id.
 Audio lengths are padded to the same AUDIO_BUCKETS ladder. The decode paths
-upload int16 PCM and rescale on the device, as the JAX package does, pad
-the log-probs to a rerank frame bucket and take the argmax on the device;
-the log-probs stay there for the CTC scorers and only the ids (with the
-frame count) cross to the host, in one copy.
+upload int16 PCM and rescale on the device, as the JAX package does (f32
+audio when TILAWA_INT16_UPLOAD is "", "0" or "false", read at
+construction as there), pad the log-probs to a rerank frame bucket and
+take the argmax on the device; the log-probs stay there for the CTC
+scorers and only the ids (with the frame count) cross to the host, in one
+copy.
 
 Long clips (long_chunking=True, or the streaming cache) run as one
 [K, LONG_CHUNK] batch of overlapping 16 s windows whose log-probs are
@@ -20,6 +22,7 @@ OracleRuntime renders CTC log-probs from token ids (numpy only).
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
 import torch
@@ -105,6 +108,7 @@ class EncoderRuntime:
         self.variables = variables
         self.model = load_into(FastConformerCTC(config), variables).to(self.device).eval()
         self.forwards = 0
+        self.int16_upload = os.getenv("TILAWA_INT16_UPLOAD", "1") not in ("", "0", "false")
 
     @property
     def blank_id(self) -> int:
@@ -137,15 +141,19 @@ class EncoderRuntime:
         )
         return lp.cpu().numpy(), enc_lens.cpu().numpy()
 
-    def _apply_pcm16(self, pieces: list[np.ndarray], n_pad: int, rows: int):
-        """Forward of `pieces` as int16 PCM in a [rows, n_pad] batch (zero
-        rows past the pieces), rescaled to f32 on the device."""
-        batch = np.zeros((rows, n_pad), dtype=np.int16)
+    def _apply_upload(self, pieces: list[np.ndarray], n_pad: int, rows: int):
+        """Forward of `pieces` in a [rows, n_pad] batch (zero rows past the
+        pieces), uploaded as int16 PCM and rescaled to f32 on the device, or
+        as f32 audio when the int16 upload is off."""
+        dtype = np.int16 if self.int16_upload else np.float32
+        batch = np.zeros((rows, n_pad), dtype=dtype)
         lengths = np.zeros(rows, dtype=np.int32)
         for i, a in enumerate(pieces):
-            batch[i, : len(a)] = _pcm16(a)
+            batch[i, : len(a)] = _pcm16(a) if self.int16_upload else a
             lengths[i] = len(a)
-        audio = torch.from_numpy(batch).to(self.device).to(torch.float32) / 32768.0
+        audio = torch.from_numpy(batch).to(self.device)
+        if self.int16_upload:
+            audio = audio.to(torch.float32) / 32768.0
         return self._apply(audio, torch.from_numpy(lengths).to(self.device))
 
     @staticmethod
@@ -166,7 +174,7 @@ class EncoderRuntime:
         (lp [T_bucket, V] on the device, ids np [t_valid], t_valid)."""
         k = self.chunk_count(len(audio))
         pieces = [audio[i * LONG_STEP : i * LONG_STEP + LONG_CHUNK] for i in range(k)]
-        lp, enc_lens = self._apply_pcm16(pieces, LONG_CHUNK, k)
+        lp, enc_lens = self._apply_upload(pieces, LONG_CHUNK, k)
         out, t_valid, ids = _stitch(list(lp), enc_lens[k - 1])
         ids_np, t = _fetch_ids(t_valid, ids)
         return out, ids_np, t
@@ -178,7 +186,7 @@ class EncoderRuntime:
         on the device, column 0 the encoder frame counts, the rest the
         per-frame argmax ids)."""
         n_pad = bucket_length(max(len(a) for a in audios))
-        lp, enc_lens = self._apply_pcm16(audios, n_pad, len(audios))
+        lp, enc_lens = self._apply_upload(audios, n_pad, len(audios))
         t = lp.shape[1]
         t_pad = _next_bucket(t, FRAME_BUCKETS)
         if t_pad != t:
@@ -214,7 +222,8 @@ class StreamingEncoderCache:
     its samples and its log-probs stay on the device, so a cycle forwards
     only the windows it has not seen (steady state: the growing tail) in a
     batch padded to {1, 2, 4, 8} rows, then stitches as forward_long does.
-    The upload is int16 PCM, as forward_long's, so both see the same audio.
+    The upload is forward_long's (int16 PCM or f32), so both see the same
+    audio.
     """
 
     MAX_ENTRIES = 24
@@ -254,7 +263,7 @@ class StreamingEncoderCache:
         b_pad = 1
         while b_pad < len(to_run):
             b_pad *= 2
-        lp_new, enc_lens = rt._apply_pcm16([p for _i, _k, p in to_run], LONG_CHUNK, b_pad)
+        lp_new, enc_lens = rt._apply_upload([p for _i, _k, p in to_run], LONG_CHUNK, b_pad)
         for j, (i, key, _piece) in enumerate(to_run):
             chunk_lps[i] = lp_new[j]
             if i < k - 1:
