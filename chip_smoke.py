@@ -13,8 +13,10 @@ without the final line):
                  at every shape the paths launch: the int4 and int8 layers
                  as the paths launch them (bf16 out, bias fused) and the
                  TPU kernels' f32 functions, with rows bitwise independent
-                 of M; timings of the kernel, the plain version and a
-                 one-call library yardstick
+                 of M, and the log-mel at every (B, N) the paths launch,
+                 its frames bitwise independent of B and of their offset;
+                 timings of the kernel, the plain version and a one-call
+                 library yardstick
   4. main path   champion-int4 Recognizer(tta=True).predict over wav clips
                  of benchmark/test_corpus (each must match the manifest),
                  plus the >25 s transcribe fallback; launch counters are
@@ -96,8 +98,14 @@ FLIP_RATE = 1e-2       # under 1% of the elements may differ at all; a product l
                        # unrounded before the scale differs in ~25% (checked below)
 CACHE_TOL = 1e-5    # max|Δ log-prob| of the streaming cache against forward_long: the
                     # reference's contract (tests/test_runtime_long.py)
-MEL_TOL = 2e-3      # max|Δ log-mel|: direct DFT vs FFT in f32 (tests/test_frontend.py holds the
-                    # JAX fused kernel to the same bound against its rfft path)
+MEL_TOL = 2e-3      # max|Δ log-mel|: the kernel's radix-4 FFT vs cuFFT's rfft in f32, sums in
+                    # other orders (tests/test_frontend.py holds the JAX fused kernel to the same
+                    # bound against its rfft path)
+# (B, N) of the log-mel launches on the paths: forward's buckets, the TTA
+# pair, forward_long's and the cache's padded batches, and an odd N
+MEL_SHAPES = ((1, 64000), (1, 128000), (1, 256000), (1, 512000), (2, 64000),
+              (2, 256000), (8, 256000), (1, 12345))
+MEL_OFFSETS = (1, 2, 3, 5, 97)   # frame offsets for the bitwise shift check
 
 # The champion's int4 products per forward, (K, N, launches), at M encoder
 # rows (pos runs over the 2T-1 relative positions).
@@ -185,10 +193,10 @@ def int8_bound_ms(m: int, k: int, n: int, out_bytes: int, bias: bool) -> tuple[f
 
 
 def mel_bound_ms(b: int, n: int, t: int, fb_nonzeros: int) -> tuple[float, str]:
-    """What the log-mel function needs, not what the direct-DFT kernel does:
-    the audio read once and the log-mels written once; per frame a 512-point
-    real FFT (2.5·n·log2 n), the power (3 per bin), the mel step over the
-    filterbank's non-zero weights (2 each) and the log (1 per mel)."""
+    """What the log-mel function needs: the audio read once and the
+    log-mels written once; per frame a 512-point real FFT (2.5·n·log2 n),
+    the power (3 per bin), the mel step over the filterbank's non-zero
+    weights (2 each) and the log (1 per mel)."""
     nbytes = b * n * 4 + b * t * 80 * 4
     flops = b * t * (2.5 * 512 * 9 + 3 * 257 + 2 * fb_nonzeros + 80)
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / F32_FLOPS_S
@@ -444,22 +452,52 @@ def check_int8(torch, np, quant, flush) -> dict:
     }
 
 
+def preemphasize(torch, frontend, audio):
+    return torch.cat([audio[:, :1], audio[:, 1:] - frontend.PREEMPH * audio[:, :-1]], dim=1)
+
+
+def check_mel_invariance(torch, np, frontend, tables) -> None:
+    """A frame's log-mels are bitwise a function of its 400 samples: each
+    row of a B=3 batch equals the row launched alone, and the frames of
+    pre[:, 160 j:] equal frames j.. of pre (offsets that move a frame to
+    every place in a block; T = 398 is not a multiple of the block's
+    frames, so the batch rows start at other places too)."""
+    rng = np.random.default_rng(SEED + 2)
+    audio = torch.from_numpy((rng.standard_normal((3, 64000)) * 0.1).astype(np.float32))
+    pre = preemphasize(torch, frontend, audio.to(DEVICE))
+    full = bits(torch, frontend.fused_log_mel(pre, tables))
+    for b in range(3):
+        alone = frontend.fused_log_mel(pre[b:b + 1].contiguous(), tables)
+        if not torch.equal(bits(torch, alone), full[b:b + 1]):
+            raise AssertionError(f"log-mel: row {b} of B=3 differs from the row alone")
+    for j in MEL_OFFSETS:
+        shifted = frontend.fused_log_mel(pre[:, 160 * j:].contiguous(), tables)
+        if not torch.equal(bits(torch, shifted), full[:, j:]):
+            raise AssertionError(f"log-mel: frames of pre[:, {160 * j}:] differ from "
+                                 f"frames {j}.. of pre")
+    print(f"  log-mel rows of B=3 equal each row alone, frames at offsets {MEL_OFFSETS} "
+          f"equal the unshifted frames: bitwise", flush=True)
+
+
 def check_log_mel(torch, np, frontend, flush) -> dict:
+    """The log-mel kernel at every (B, N) the paths launch, against its
+    plain version (cuFFT rfft) and one library yardstick (torch.stft +
+    matmul), plus its bitwise invariances. The JSON entry carries B=2,
+    N=64000 (as in earlier runs), the B=1 forward bucket beside it under
+    b1_*, and every shape under `shapes`."""
     rng = np.random.default_rng(SEED + 1)
     dev = torch.device(DEVICE)
     tables = frontend.mel_tables(dev)
     window = tables.window
-    entry = None
-    max_err = 0.0
-    for n in (64000, 256000):
-        b = 2
+    fb_nonzeros = int((tables.fb != 0).sum())
+    rows = {}
+    for b, n in MEL_SHAPES:
         audio = torch.from_numpy((rng.standard_normal((b, n)) * 0.1).astype(np.float32)).to(dev)
-        pre = torch.cat([audio[:, :1], audio[:, 1:] - frontend.PREEMPH * audio[:, :-1]], dim=1)
+        pre = preemphasize(torch, frontend, audio)
         out = frontend.fused_log_mel(pre, tables)
         ref = frontend.log_mel_plain(pre, tables)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        max_err = max(max_err, err)
         if not err <= MEL_TOL:
             raise AssertionError(f"log-mel B={b} N={n}: max|Δ| {err} > {MEL_TOL}")
 
@@ -477,20 +515,27 @@ def check_log_mel(torch, np, frontend, flush) -> dict:
         ms = time_cuda(torch, lambda: frontend.fused_log_mel(pre, tables), flush)
         plain = time_cuda(torch, lambda: frontend.log_mel_plain(pre, tables), flush)
         lib = time_cuda(torch, library, flush)
-        bound, by = mel_bound_ms(b, n, out.shape[1], int((tables.fb != 0).sum()))
+        bound, by = mel_bound_ms(b, n, out.shape[1], fb_nonzeros)
         print(f"  log-mel B={b} N={n} T={out.shape[1]}  max|Δ|={err:.3g} (stft yardstick "
               f"{lib_err:.3g})  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-              f"stft+matmul {lib:.4f} ms  bound {bound:.5f} ms ({by})", flush=True)
-        if n == 64000:
-            entry = {
-                "name": "log_mel", "route": "cuda",
-                "source": "tilawa_tpu_torch/csrc/log_mel.cu",
-                "replaces": "tilawa_tpu/ops/frontend.py:134",
-                "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                "library_ms": lib,
-            }
-    entry["max_abs_err"] = max_err
-    return entry
+              f"stft+matmul {lib:.4f} ms (kernel/library {ms / lib:.3f})  "
+              f"bound {bound:.5f} ms ({by})", flush=True)
+        rows[(b, n)] = {"b": b, "n": n, "t": out.shape[1], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain, "library_ms": lib, "bound_ms": bound, "bound_by": by}
+    check_mel_invariance(torch, np, frontend, tables)
+    tiny = torch.empty(1, device=dev)
+    floor = time_cuda(torch, lambda: tiny.fill_(0.0), flush)
+    print(f"  launch floor of these events (a one-element fill): {floor:.4f} ms", flush=True)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {
+        "name": "log_mel", "route": "cuda",
+        "source": "tilawa_tpu_torch/csrc/log_mel.cu",
+        "replaces": "tilawa_tpu/ops/frontend.py:134",
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        **{k: rows[(2, 64000)][k] for k in keys},
+        **{f"b1_{k}": rows[(1, 64000)][k] for k in keys},
+        "shapes": list(rows.values()), "launch_floor_ms": floor,
+    }
 
 
 def _pcts(values: list[float]) -> str:
@@ -609,7 +654,7 @@ def batch_variance(torch, np, runtime, frontend, audio) -> dict[str, float]:
         lengths = torch.tensor([len(piece) for piece in pieces], dtype=torch.int32,
                                device=DEVICE)
         tables = model.tables()
-        pre = torch.cat([audio_t[:, :1], audio_t[:, 1:] - frontend.PREEMPH * audio_t[:, :-1]], 1)
+        pre = preemphasize(torch, frontend, audio_t)
         deltas["(log-mel kernel)"] = differs(frontend.fused_log_mel(pre, tables)[:1],
                                              frontend.fused_log_mel(pre[:1], tables))
         feats2, _ = frontend.log_mel_spectrogram(audio_t, lengths, tables)
@@ -727,9 +772,9 @@ def host_ms(runtime, recognizer, audio) -> tuple[float, float]:
 def device_busy(torch, runtime, audio, fwd_ms: float, top: int) -> dict | None:
     """One forward under torch.profiler: device busy time, its share of the
     host-clock forward, the `top` kernels by device time, and per forward
-    the launches of the quantized matmul and of any split-K sum kernel and
-    the aten::copy_ and aten::add calls. None if the profiler saw no device
-    time."""
+    the launches of the quantized matmul and of any split-K sum kernel, the
+    log-mel kernel's launches and device time, and the aten::copy_ and
+    aten::add calls. None if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -750,10 +795,13 @@ def device_busy(torch, runtime, audio, fwd_ms: float, top: int) -> dict | None:
         "splitk_kernels": sum(e.count for e in stats if "splitk" in e.key.lower()),
         "copy_": sum(e.count for e in stats if e.key == "aten::copy_"),
         "add": sum(e.count for e in stats if e.key == "aten::add"),
+        "mel_kernels": sum(e.count for e in stats if "log_mel_kernel" in e.key),
+        "mel_ms": sum(device_us(e) for e in stats if "log_mel_kernel" in e.key) / 1e3,
     }
     print(f"    profiled forward: device busy {busy_ms:.3f} ms "
           f"= {100 * busy_ms / fwd_ms:.1f}% of the median forward; quant matmul "
-          f"{counts['matmul_kernels']} launches {counts['matmul_ms']:.3f} ms, split-K sum "
+          f"{counts['matmul_kernels']} launches {counts['matmul_ms']:.3f} ms, log-mel "
+          f"{counts['mel_kernels']} launch {counts['mel_ms']:.4f} ms, split-K sum "
           f"kernels {counts['splitk_kernels']}, aten::copy_ {counts['copy_']}, aten::add "
           f"{counts['add']}", flush=True)
     for e in sorted(stats, key=device_us, reverse=True)[:top]:

@@ -9,13 +9,15 @@ errs by ~1e-3·max|ref|); int8_dense (scale after, bf16 out), each element
 within two bf16 ulps (2^-6·|ref|) plus 1e-5·max|ref| for sums that cancel,
 and under 1% of the elements different (the bf16 rounding of an f32 sum
 taken in another order flips its last bit, and the scale multiply can
-widen that flip to two ulps of the output); log-mel, 2e-3 (direct DFT vs
-FFT in f32, the bound tests/test_frontend.py holds the JAX fused kernel
-to). Fused layer epilogues with a bias (int4_dense, int8_dense): each
-element within two bf16 ulps of the pre-bias value plus two of the output,
-2^-6·(|u| + |ref|), plus 1e-5·max|ref|, under 1% of the elements different
-(the bias add can carry a last-bit flip of the rounded product one output
-ulp further); int4_dense is also bit-equal to the cast and bias add of
+widen that flip to two ulps of the output); log-mel, 2e-3 (the kernel's
+radix-4 FFT vs cuFFT's rfft in f32, sums in other orders; the bound
+tests/test_frontend.py holds the JAX fused kernel to), silence within
+1e-6 of ln(1e-5), frames bitwise independent of B and offset. Fused
+layer epilogues with a bias (int4_dense, int8_dense): each element within
+two bf16 ulps of the pre-bias value plus two of the output, 2^-6·(|u| +
+|ref|), plus 1e-5·max|ref|, under 1% of the elements different (the bias
+add can carry a last-bit flip of the rounded product one output ulp
+further); int4_dense is also bit-equal to the cast and bias add of
 int4_matmul's own f32 output (same body, same sum order). Row invariance:
 bitwise. The streaming cache against forward_long on stream6-int8: 1e-5,
 the reference's contract (tests/test_runtime_long.py)."""
@@ -65,10 +67,22 @@ def test_int4_kernel_rejects_bad_inputs(cuda):
         quant.int4_matmul(torch.zeros((2, 64), device=cuda), packed.float(), scales)
 
 
-@pytest.mark.parametrize("b,n", [(2, 64000), (1, 12345), (3, 400)])
+# (B, N) the paths launch: forward's buckets, the TTA pair, forward_long's
+# and the cache's padded batches, a ragged N; and the three first cases
+LOG_MEL_SHAPES = [
+    (2, 64000), (1, 12345), (3, 400), (1, 64000), (1, 128000), (1, 256000),
+    (1, 512000), (2, 256000), (8, 256000),
+]
+
+
+def _pre(cuda, b, n, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal((b, n)) * 0.1).astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("b,n", LOG_MEL_SHAPES)
 def test_log_mel_kernel_matches_plain(cuda, b, n):
-    rng = np.random.default_rng(n)
-    pre = torch.from_numpy((rng.standard_normal((b, n)) * 0.1).astype(np.float32)).to(cuda)
+    pre = _pre(cuda, b, n, n)
     tables = frontend.mel_tables(cuda)
     kernels.reset_launches()
     out = frontend.fused_log_mel(pre, tables)
@@ -77,6 +91,43 @@ def test_log_mel_kernel_matches_plain(cuda, b, n):
     assert kernels.LAUNCHES["log_mel"] == 1
     assert out.shape == ref.shape
     assert float((out - ref).abs().max()) <= 2e-3
+
+
+def test_log_mel_frame_does_not_depend_on_batch_or_offset(cuda):
+    """A frame's log-mels are bitwise a function of its 400 samples alone:
+    each row of a B=3 batch equals the row launched alone, and the frames
+    of pre[:, 160 j:] equal frames j.. of pre, for offsets that move a
+    frame to every place in a block."""
+    pre = _pre(cuda, 3, 64000, 11)
+    tables = frontend.mel_tables(cuda)
+    full = frontend.fused_log_mel(pre, tables)
+    for b in range(3):
+        alone = frontend.fused_log_mel(pre[b:b + 1].contiguous(), tables)
+        assert torch.equal(alone.view(torch.int32), full[b:b + 1].view(torch.int32))
+    for j in (1, 2, 3, 5, 97):
+        shifted = frontend.fused_log_mel(pre[:, 160 * j:].contiguous(), tables)
+        assert torch.equal(shifted.view(torch.int32), full[:, j:].view(torch.int32))
+
+
+def test_log_mel_of_silence_is_the_log_guard(cuda):
+    pre = torch.zeros((2, 16000), device=cuda)
+    tables = frontend.mel_tables(cuda)
+    out = frontend.fused_log_mel(pre, tables)
+    ref = frontend.log_mel_plain(pre, tables)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-6
+    assert float((out - np.log(np.float32(1e-5))).abs().max()) <= 1e-6
+
+
+def test_log_mel_kernel_rejects_bad_inputs(cuda):
+    tables = frontend.mel_tables(cuda)
+    with pytest.raises(ValueError):
+        frontend.fused_log_mel(torch.zeros((2, 8000), dtype=torch.float64, device=cuda), tables)
+    with pytest.raises(ValueError):
+        frontend.fused_log_mel(torch.zeros((8000,), device=cuda), tables)
+    with pytest.raises(ValueError):
+        frontend.fused_log_mel(torch.zeros((1, 8000), device=cuda),
+                               tables._replace(bands=tables.bands.float()))
 
 
 def test_champion_kernel_path_matches_plain_path(cuda):

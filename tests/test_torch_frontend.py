@@ -34,14 +34,54 @@ def test_host_helpers_are_copies():
     )
 
 
-def test_dft_tables_are_the_pallas_blocks():
-    real, imag = tf.dft_tables()
-    jr, ji = jf._dft_matrices()
-    for r in range(3):
-        lo, hi = r * jf.HOP_LENGTH, min(r * jf.HOP_LENGTH + jf.HOP_LENGTH, jf.WIN_LENGTH)
-        rows = slice(r * jf._ROW_PAD, r * jf._ROW_PAD + hi - lo)
-        np.testing.assert_array_equal(real[lo:hi], jr[rows, :257])
-        np.testing.assert_array_equal(imag[lo:hi], ji[rows, :257])
+def test_twiddles_are_float64_rounded_once():
+    ang = 2.0 * np.pi * np.arange(512, dtype=np.float64) / 512
+    tw = tf.twiddles()
+    assert tw.dtype == np.float32 and tw.shape == (512, 2)
+    np.testing.assert_array_equal(tw[:, 0], np.cos(ang).astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], (-np.sin(ang)).astype(np.float32))
+
+
+def test_mel_bands_reproduce_the_filterbank():
+    """Every non-zero weight of mel_filterbank() sits in its mel's band at
+    its bin, nothing lies outside a band, and the bands are the contiguous
+    runs the kernel sums (1-17 bins, each bin in at most two mels)."""
+    fb = tf.mel_filterbank()
+    bands, weights = tf.mel_bands()
+    assert bands.dtype == np.int32 and bands.shape == (80, 3) and weights.dtype == np.float32
+    dense = np.zeros_like(fb)
+    for m, (first, count, offset) in enumerate(bands):
+        band = weights[offset:offset + count]
+        assert np.all(band != 0), f"mel {m}: a zero inside its band"
+        dense[first:first + count, m] = band
+    np.testing.assert_array_equal(dense, fb)
+    np.testing.assert_array_equal(bands[1:, 2], np.cumsum(bands[:-1, 1]))
+    assert len(weights) == bands[-1, 1] + bands[-1, 2] == int((fb != 0).sum()) == 503
+    assert bands[:, 1].min() >= 1 and bands[:, 1].max() <= 17
+    assert int((fb != 0).sum(axis=1).max()) <= 2
+
+
+def test_band_sums_equal_the_dense_mel_product():
+    rng = np.random.default_rng(5)
+    power = rng.exponential(size=(7, 257))
+    bands, weights = tf.mel_bands()
+    sums = np.stack([
+        power[:, first:first + count] @ weights[offset:offset + count].astype(np.float64)
+        for first, count, offset in bands
+    ], axis=1)
+    dense = power @ tf.mel_filterbank().astype(np.float64)
+    np.testing.assert_allclose(sums, dense, rtol=1e-12, atol=0)
+
+
+def test_mel_tables_are_the_host_tables():
+    tables = tf.mel_tables()
+    bands, weights = tf.mel_bands()
+    assert tables._fields == ("window", "fb", "twiddle", "bands", "band_weights")
+    for got, want in zip(tables, (tf.hann_window(), tf.mel_filterbank(), tf.twiddles(),
+                                  bands, weights)):
+        assert got.dtype == torch.from_numpy(want).dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tables.window.numpy(), jf.hann_window())
 
 
 @pytest.mark.parametrize("seed,n,lengths", [

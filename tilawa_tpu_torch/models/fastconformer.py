@@ -423,7 +423,7 @@ class FastConformerCTC(nn.Module):
         self.ctc_head = make_dense(cfg, cfg.d_model, cfg.num_classes)
 
     def tables(self) -> MelTables:
-        return MelTables(self.mel_window, self.mel_fb, self.mel_dft_real, self.mel_dft_imag)
+        return MelTables(*(getattr(self, f"mel_{name}") for name in MelTables._fields))
 
     def forward(
         self, audio: torch.Tensor, lengths: torch.Tensor

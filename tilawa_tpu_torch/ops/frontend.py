@@ -5,12 +5,14 @@ window / 160 hop (center=False), periodic Hann, pre-emphasis 0.97, 80 HTK
 mel filters 0..8 kHz with Slaney normalization, power spectrum,
 ln(mel + 1e-5), per-feature mean/std normalization over the valid frames.
 
-`fused_log_mel` launches the hand-written CUDA kernel (csrc/log_mel.cu) for
-a CUDA tensor and uses `log_mel_plain` (framing + Hann + rfft + power + mel
-+ ln, all f32) for a CPU tensor; the plain version is also what the kernel
-is held against on the card. The kernel's tables (window × cos/sin DFT and
-the filterbank) are built here in numpy and live on the device as
-`MelTables`, which the model owns as buffers.
+`fused_log_mel` launches the hand-written CUDA kernel (csrc/log_mel.cu, a
+shared-memory FFT per frame) for a CUDA tensor and uses `log_mel_plain`
+(framing + Hann + rfft + power + mel + ln, all f32) for a CPU tensor; the
+plain version is also what the kernel is held against on the card. The
+tables (the window, the dense filterbank for the plain version, the FFT's
+twiddles and the filterbank as bands of non-zero bins for the kernel) are
+built here in numpy and live on the device as `MelTables`, which the model
+owns as buffers.
 """
 
 from __future__ import annotations
@@ -85,30 +87,46 @@ def frames_for_length(length: torch.Tensor) -> torch.Tensor:
     return torch.clamp(1 + (length - WIN_LENGTH) // HOP_LENGTH, min=0)
 
 
-def dft_tables() -> tuple[np.ndarray, np.ndarray]:
-    """Hann-windowed real-DFT tables [WIN, 257] (cos, sin), built in float64
-    and rounded to f32 as tilawa_tpu/ops/frontend.py:_dft_matrices builds
-    its blocks."""
-    t = np.arange(WIN_LENGTH, dtype=np.float64)[:, None]
-    k = np.arange(N_FREQS, dtype=np.float64)[None, :]
-    ang = -2.0 * np.pi * t * k / N_FFT
-    win = hann_window().astype(np.float64)[:, None]
-    return (win * np.cos(ang)).astype(np.float32), (win * np.sin(ang)).astype(np.float32)
+def twiddles() -> np.ndarray:
+    """exp(-2πi m / 512) for m < 512 as [512, 2] f32 (cos, −sin), built in
+    float64 and rounded once: the kernel's FFT stages and its split step
+    take every twiddle from this table."""
+    ang = 2.0 * np.pi * np.arange(N_FFT, dtype=np.float64) / N_FFT
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def mel_bands() -> tuple[np.ndarray, np.ndarray]:
+    """The filterbank as bands: ([80, 3] int32 of each mel's first bin, bin
+    count and offset into the weights; the weights f32, mel by mel in bin
+    order). A band runs from a mel's first to its last non-zero bin."""
+    fb = mel_filterbank()
+    bands = np.zeros((fb.shape[1], 3), np.int32)
+    weights = []
+    offset = 0
+    for m in range(fb.shape[1]):
+        nz = np.flatnonzero(fb[:, m])
+        first, count = int(nz[0]), int(nz[-1] - nz[0]) + 1
+        bands[m] = first, count, offset
+        weights.append(fb[first:first + count, m])
+        offset += count
+    return bands, np.concatenate(weights).astype(np.float32)
 
 
 class MelTables(NamedTuple):
-    window: torch.Tensor     # [WIN] f32
-    fb: torch.Tensor         # [257, 80] f32
-    dft_real: torch.Tensor   # [WIN, 257] f32
-    dft_imag: torch.Tensor   # [WIN, 257] f32
+    window: torch.Tensor        # [WIN] f32
+    fb: torch.Tensor            # [257, 80] f32 (the plain version)
+    twiddle: torch.Tensor       # [512, 2] f32
+    bands: torch.Tensor         # [80, 3] int32: first bin, bin count, weight offset
+    band_weights: torch.Tensor  # [non-zeros] f32
 
 
 def mel_tables(device: str | torch.device = "cpu") -> MelTables:
-    real, imag = dft_tables()
+    bands, weights = mel_bands()
     # torch.tensor copies: the window and filterbank arrays are lru-cached
     return MelTables(*(
         torch.tensor(a, device=device)
-        for a in (hann_window(), mel_filterbank(), real, imag)
+        for a in (hann_window(), mel_filterbank(), twiddles(), bands, weights)
     ))
 
 
@@ -123,7 +141,7 @@ def log_mel_plain(
     return torch.log(torch.matmul(power, tables.fb) + eps)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def fused_log_mel(
@@ -139,23 +157,25 @@ def fused_log_mel(
         raise ValueError(f"fused_log_mel runs on cuda or cpu tensors, got {pre.device}")
     if pre.dim() != 2 or pre.dtype != torch.float32 or not pre.is_contiguous():
         raise ValueError("pre must be a contiguous float32 [B, N] tensor")
-    shapes = {
-        "fb": (N_FREQS, N_MELS), "dft_real": (WIN_LENGTH, N_FREQS),
-        "dft_imag": (WIN_LENGTH, N_FREQS),
+    layouts = {
+        "window": ((WIN_LENGTH,), torch.float32), "twiddle": ((N_FFT, 2), torch.float32),
+        "bands": ((N_MELS, 3), torch.int32),
+        "band_weights": ((len(mel_bands()[1]),), torch.float32),
     }
-    for name, shape in shapes.items():
+    for name, (shape, dtype) in layouts.items():
         t = getattr(tables, name)
-        if (tuple(t.shape) != shape or t.dtype != torch.float32
+        if (tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != pre.device or not t.is_contiguous()):
-            raise ValueError(f"table {name} must be contiguous float32 {shape} on {pre.device}")
+            raise ValueError(f"table {name} must be contiguous {dtype} {shape} on {pre.device}")
     b, n = pre.shape
     t_frames = num_frames(n)
     out = torch.empty((b, t_frames, N_MELS), dtype=torch.float32, device=pre.device)
     if b and t_frames:
         fn = kernels.function("log_mel", "tilawa_log_mel", _ARGTYPES)
         err = fn(
-            pre.data_ptr(), tables.dft_real.data_ptr(), tables.dft_imag.data_ptr(),
-            tables.fb.data_ptr(), out.data_ptr(), b, n, t_frames, eps,
+            pre.data_ptr(), tables.window.data_ptr(), tables.twiddle.data_ptr(),
+            tables.bands.data_ptr(), tables.band_weights.data_ptr(), out.data_ptr(),
+            b, n, t_frames, tables.band_weights.shape[0], eps,
             torch.cuda.current_stream(pre.device).cuda_stream,
         )
         kernels.check(err, "fused_log_mel")
