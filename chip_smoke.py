@@ -13,10 +13,12 @@ without the final line):
                  at every shape the paths launch: the int4 and int8 layers
                  as the paths launch them (bf16 out, bias fused) and the
                  TPU kernels' f32 functions, with rows bitwise independent
-                 of M, and the log-mel at every (B, N) the paths launch,
-                 its frames bitwise independent of B and of their offset;
-                 timings of the kernel, the plain version and a one-call
-                 library yardstick
+                 of M (int4 also at the batched eval's M = 8·T, up to
+                 6400, with per-forward sums at each bucket), and the
+                 log-mel at every (B, N) the paths launch (B=8 at every
+                 bucket of the batched eval), its frames bitwise
+                 independent of B and of their offset; timings of the
+                 kernel, the plain version and a one-call library yardstick
   4. main path   champion-int4 Recognizer(tta=True).predict over wav clips
                  of benchmark/test_corpus (each must match the manifest),
                  plus the >25 s transcribe fallback; launch counters are
@@ -27,26 +29,47 @@ without the final line):
                  clock, and each forward under torch.profiler: device busy
                  share, the kernels that take the device time, one quantized
                  matmul launch per product and no split-K sum kernel
-  7. streaming   stream6-int8 (int8 Dense): one forward's launches and its
+  7. eval        c2c-direct-mixed-tta through the port's runner over every
+                 v1 sample (counters zeroed just before, read just after):
+                 every scored clip matches its manifest (recall, precision,
+                 sequence accuracy 1.0), N >= 37, dispositions, latency
+                 p50/mean/p90, TILAWA_PROFILE stage medians, agreement with
+                 the JAX package's recorded run; then the other registered
+                 experiments over the wav clips, with no error
+  8. batched     step 0 (two B=8 forward_batch_async calls make no
+                 synchronizing call; behind a device sleep the host queues
+                 the first one's early blocks while the device sleeps),
+                 then batched_corpus_eval at B=8 over the eval's clips
+                 (counters zeroed just before, read just after): the eval's
+                 verses, recall and sequence accuracy 1.0, 189 int4
+                 launches per forward; B=8 rows against B=1 (greedy ids
+                 equal, max |Δ log-prob|); audio-s/s, stage times, peak
+                 memory
+  9. bench       python -m tilawa_tpu_torch.bench as a child process: its
+                 JSON line whole, recall, seq_acc and batched recall 1.0
+  10. streaming  stream6-int8 (int8 Dense): one forward's launches and its
                  profile as in "trace", then v1 clips
                  replayed through validate_streaming's
                  RecitationTracker in 300 ms chunks (each must score
                  sequence accuracy 1.0), with per-cycle forward, fusion
                  scoring and feed times; counters zeroed just before the
                  replay and read just after
-  8. cache       StreamingEncoderCache on a window over 16 s, cold and
+  11. cache      StreamingEncoderCache on a window over 16 s, cold and
                  with its tail grown by 1 s, against forward_long (ids,
                  t_valid, log-probs), and the ops whose row 0 changes with
                  the batch size at equal input
-  9. server      the port's WebSocket server in-process on 127.0.0.1
-                 (TILAWA_CHECKPOINT=exports/stream6-int8, tracker engine)
-                 and two ws_client streams at once, each of which must get
-                 a verse_match for its clip's verse
-  10. champion  the trace's two clips' forward and predict once more, in
-      again      the process state the three phases before leave behind
+  12. server     the port's WebSocket server in-process on 127.0.0.1
+                 (TILAWA_CHECKPOINT=exports/stream6-int8, tracker engine):
+                 two ws_client streams at once, each of which must get a
+                 verse_match for its clip's verse; then the port's ws_bench
+                 with two clients over the four streaming clips, flat out,
+                 each at sequence accuracy 1.0, per-message latency p50/p90
+  13. champion   the trace's two clips' forward and predict once more, in
+      again      the process state the phases before leave behind
 
 The last three lines: nvidia-smi's name and power limit, one JSON object
-with every kernel's numbers, and {"ok": true, "device": {...}}.
+with every kernel's numbers (`launches`: the eval phase's run), and
+{"ok": true, "device": {...}}.
 Imports nothing of JAX, flax, msgpack or tilawa_tpu.
 """
 
@@ -80,6 +103,27 @@ STREAM_IDS = ("retasy_003", "retasy_010", "multi_103_001_003", "ref_033056")
 SERVER_CLIPS = ("retasy_003.wav", "retasy_010.wav")
 SEED = 0
 DEVICE = "cuda"
+MAIN_EXPERIMENT = "c2c-direct-mixed-tta"
+OTHER_EXPERIMENTS = ("c2c-direct-mixed", "fastconformer-zeroshot", "ctc-alignment",
+                     "oracle", "oracle-hard")
+# the v1 wav clips present (N=37); 44 where mp3/m4a decode as well
+MIN_EVAL_CLIPS = 37
+# the JAX package's recorded run of MAIN_EXPERIMENT over v1 (44 clips at 1.0)
+JAX_RECORDED_RUN = ROOT / "benchmark" / "results" / "2026-08-21_095830.json"
+BENCH_BUDGET_S = 300
+WS_CLIENTS = 2
+# step 0: two B=8 forwards at NO_SYNC_BUCKET make no synchronizing call;
+# behind a device sleep of NO_SYNC_SLEEP_S (torch.cuda._sleep counts SM
+# cycles, ~1.98e9 a second on an H100 SXM at full clock) the host reaches
+# block HOOK_BLOCK of the first within NO_SYNC_SHARE of the sleep, the
+# device still asleep; the two forwards' host and device times are printed
+# at NO_SYNC_BUCKET and BUSY_BUCKET
+NO_SYNC_BUCKET = 512000
+BUSY_BUCKET = 1024000
+NO_SYNC_SLEEP_S = 0.3
+SLEEP_CYCLES_PER_S = 1.98e9
+NO_SYNC_SHARE = 0.5
+HOOK_BLOCK = 2
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
 # tensor-core and f32 CUDA-core operations/s.
@@ -104,7 +148,8 @@ MEL_TOL = 2e-3      # max|Δ log-mel|: the kernel's radix-4 FFT vs cuFFT's rfft 
 # (B, N) of the log-mel launches on the paths: forward's buckets, the TTA
 # pair, forward_long's and the cache's padded batches, and an odd N
 MEL_SHAPES = ((1, 64000), (1, 128000), (1, 256000), (1, 512000), (2, 64000),
-              (2, 256000), (8, 256000), (1, 12345))
+              (2, 256000), (8, 256000), (1, 12345),
+              (8, 64000), (8, 128000), (8, 512000), (8, 1024000))   # the batched eval's
 MEL_OFFSETS = (1, 2, 3, 5, 97)   # frame offsets for the bitwise shift check
 
 # The champion's int4 products per forward, (K, N, launches), at M encoder
@@ -129,9 +174,25 @@ M_MAIN = 50          # encoder frames of the 64000-sample (4 s) bucket
 PATH_T = (50, 100, 200, 400)
 
 
+# The batched corpus eval: B=8 rows at the encoder frames of the 64000 …
+# 1024000-sample buckets (pos stays one [2T-1, D] product per forward).
+BATCH = 8
+BATCH_T = (50, 100, 200, 400, 800)
+
+
 def path_ms(name: str) -> tuple[int, ...]:
-    """The rows M a product runs at on the paths (pos at 2T-1)."""
+    """The rows M a product runs at on the per-clip paths (pos at 2T-1)."""
     return tuple(2 * t - 1 for t in PATH_T) if name == "pos" else PATH_T
+
+
+def batched_m(name: str, t: int) -> int:
+    """The rows M a product runs at in a batched forward of T frames."""
+    return 2 * t - 1 if name == "pos" else BATCH * t
+
+
+def int4_ms(name: str) -> tuple[int, ...]:
+    """Every M the champion's products run at: per clip and batched."""
+    return tuple(sorted(set(path_ms(name)) | {batched_m(name, t) for t in BATCH_T}))
 
 
 class PhaseFailed(Exception):
@@ -253,6 +314,7 @@ def check_int4(torch, np, quant, flush) -> dict:
     totals = {kind: dict.fromkeys(keys, 0.0) for kind in ("layer", "f32")}
     max_err = {"layer": 0.0, "f32": 0.0}
     flips, elems, bound_by = 0, 0, set()
+    layer_rows: dict[tuple[str, int], dict] = {}
     for name, k, n, count in INT4_SHAPES:
         packed = torch.from_numpy(rng.integers(0, 256, (k // 2, n), dtype=np.uint8)).to(dev)
         scales = torch.from_numpy(
@@ -265,12 +327,12 @@ def check_int4(torch, np, quant, flush) -> dict:
         w_bf16 = w_f32.to(torch.bfloat16)
 
         x_all = torch.from_numpy(
-            rng.standard_normal((max(path_ms(name)), k)).astype(np.float32)).to(dev)
+            rng.standard_normal((max(int4_ms(name)), k)).astype(np.float32)).to(dev)
         x_all = x_all.to(torch.bfloat16)
         for what, fn in (("int4_matmul", lambda x: quant.int4_matmul(x, packed, scales)),
                          ("int4_dense", lambda x: quant.int4_dense(x, packed, scales, bias))):
-            check_rows(torch, f"{what} {name}", fn, x_all, (1, *path_ms(name)))
-        for m in path_ms(name):
+            check_rows(torch, f"{what} {name}", fn, x_all, (1, *int4_ms(name)))
+        for m in int4_ms(name):
             x = x_all[:m]
             out = quant.int4_matmul(x, packed, scales)
             ref = quant.int4_matmul_plain(x, packed, scales)
@@ -314,12 +376,17 @@ def check_int4(torch, np, quant, flush) -> dict:
                 plain = time_cuda(torch, plain_fn, flush)
                 bound, by = int4_bound_ms(m, k, n, out_bytes, with_bias)
                 line.append(f"{kind}: kernel {ms:.4f} plain {plain:.4f} bound {bound:.5f} ({by})")
+                if kind == "layer":
+                    layer_rows[(name, m)] = {"name": name, "m": m, "k": k, "n": n, "ms": ms,
+                                             "plain_ms": plain, "library_ms": lib,
+                                             "bound_ms": bound, "bound_by": by,
+                                             "max_abs_err": err_l}
                 if m == (2 * M_MAIN - 1 if name == "pos" else M_MAIN):
                     for key, v in zip(keys, (ms, plain, lib, bound)):
                         totals[kind][key] += count * v
                     if kind == "layer":
                         bound_by.add(by)
-            print(f"  int4 {name:9s} M={m:3d} K={k:4d} N={n:4d}  f32 max|Δ|={err:.3g} "
+            print(f"  int4 {name:9s} M={m:4d} K={k:4d} N={n:4d}  f32 max|Δ|={err:.3g} "
                   f"(ref max {scale:.3g}, unrounded W {unrounded:.3g}); layer flips "
                   f"{n_flips}/{n_el} max|Δ|={err_l:.3g}  " + "; ".join(line)
                   + f"; torch.matmul(bf16 W) {lib:.4f} ms", flush=True)
@@ -328,6 +395,16 @@ def check_int4(torch, np, quant, flush) -> dict:
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items()), flush=True)
     print(f"  int4 (layer) last-bit flip rate {flips}/{elems} = {flips / elems:.3g}; rows "
           f"bitwise independent of M", flush=True)
+    batched = []
+    for t in BATCH_T:
+        rows = [(count, layer_rows[(name, batched_m(name, t))])
+                for name, _k, _n, count in INT4_SHAPES]
+        per = {key: sum(c * r[key] for c, r in rows) for key in keys}
+        batched.append({"b": BATCH, "t": t, "m": BATCH * t, **per})
+        print(f"  int4 (layer) per batched forward B={BATCH} T={t} (M={BATCH * t}, "
+              f"{INT4_LAUNCHES_PER_FORWARD} launches): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in per.items())
+              + f"; kernel/library {per['ms'] / per['library_ms']:.3f}", flush=True)
     return {
         "name": "int4_matmul", "route": "cuda",
         "source": "tilawa_tpu_torch/csrc/quant_matmul.cuh",
@@ -337,6 +414,7 @@ def check_int4(torch, np, quant, flush) -> dict:
         "f32_out_max_abs_err": max_err["f32"],
         **{f"f32_out_{k}": v for k, v in totals["f32"].items()},
         "flip_rate": flips / elems,
+        "batched_per_forward": batched, "shapes": list(layer_rows.values()),
     }
 
 
@@ -500,6 +578,10 @@ def check_log_mel(torch, np, frontend, flush) -> dict:
         err = float((out - ref).abs().max())
         if not err <= MEL_TOL:
             raise AssertionError(f"log-mel B={b} N={n}: max|Δ| {err} > {MEL_TOL}")
+        if b == BATCH:
+            alone = frontend.fused_log_mel(pre[b - 3:b - 2].contiguous(), tables)
+            if not torch.equal(bits(torch, alone), bits(torch, out[b - 3:b - 2])):
+                raise AssertionError(f"log-mel B={b} N={n}: row {b - 3} differs from the row alone")
 
         def library():
             # stft centres the 400-sample window in each 512-point frame; a
@@ -608,11 +690,14 @@ def streaming(torch, kernels, rerank, validate_streaming, recognizer) -> dict:
     return launches
 
 
-def batch_variance(torch, np, runtime, frontend, audio) -> dict[str, float]:
-    """Which ops of the forward give row 0 another value at batch 2 than at
-    batch 1, each on the same input. The first two 16 s windows of `audio`
-    go through the model as one [2, LONG_CHUNK] batch, as forward_long and
-    the cache forward them, with every module's inputs and output kept;
+def batch_variance(torch, np, runtime, frontend, audio, rows: int = 2,
+                   n: int | None = None) -> dict[str, float]:
+    """Which ops of the forward give row 0 another value at batch `rows`
+    than at batch 1, each on the same input. `rows` windows of `audio`, n
+    samples long (default LONG_CHUNK, 16 s; for 2 rows, the first two, as
+    forward_long and the cache forward them; for more, at evenly spaced
+    starts), go through the model as one [rows, n] batch, with every
+    module's inputs and output kept;
     then each module runs again on row 0 of its own inputs alone. A module
     whose row 0 differs while none of its submodules' does holds the op in
     its own code. The frontend (outside any module) is checked the same way,
@@ -621,7 +706,10 @@ def batch_variance(torch, np, runtime, frontend, audio) -> dict[str, float]:
     from tilawa_tpu_torch.pipeline.runtime import LONG_CHUNK, LONG_STEP
 
     model = runtime.model
-    pieces = [audio[:LONG_CHUNK], audio[LONG_STEP:LONG_STEP + LONG_CHUNK]]
+    n = LONG_CHUNK if n is None else n
+    step = LONG_STEP if n == LONG_CHUNK else max(len(audio) - n, 0)
+    starts = [round(i * step / (rows - 1)) for i in range(rows)]
+    pieces = [audio[s:s + n] for s in starts]
     kept: list = []
 
     def hook(name):
@@ -632,7 +720,7 @@ def batch_variance(torch, np, runtime, frontend, audio) -> dict[str, float]:
         return fn
 
     def row0(a):
-        return a[:1] if torch.is_tensor(a) and a.dim() and a.shape[0] == 2 else a
+        return a[:1] if torch.is_tensor(a) and a.dim() and a.shape[0] == rows else a
 
     def differs(a, b) -> float:
         if torch.equal(bits(torch, a), bits(torch, b)):
@@ -641,13 +729,13 @@ def batch_variance(torch, np, runtime, frontend, audio) -> dict[str, float]:
 
     handles = [m.register_forward_hook(hook(name)) for name, m in model.named_modules() if name]
     try:
-        runtime._apply_upload(pieces, LONG_CHUNK, 2)
+        runtime._apply_upload(pieces, n, rows)
     finally:
         for h in handles:
             h.remove()
     deltas = {}
     with torch.inference_mode():
-        batch = np.zeros((2, LONG_CHUNK), np.int16)
+        batch = np.zeros((rows, n), np.int16)
         for i, piece in enumerate(pieces):
             batch[i, : len(piece)] = np.clip(piece * 32768.0, -32768, 32767)
         audio_t = torch.from_numpy(batch).to(DEVICE).float() / 32768.0
@@ -661,7 +749,7 @@ def batch_variance(torch, np, runtime, frontend, audio) -> dict[str, float]:
         feats1, _ = frontend.log_mel_spectrogram(audio_t[:1], lengths[:1], tables)
         deltas["(frontend: log-mel + normalization)"] = differs(feats2[:1], feats1)
         for name, module, args, out in kept:
-            if out.dim() and out.shape[0] == 2:
+            if out.dim() and out.shape[0] == rows:
                 one = module(*(row0(a) for a in args))
                 one = one[0] if isinstance(one, tuple) else one
                 deltas[name] = differs(out[:1], one)
@@ -672,10 +760,10 @@ def batch_variance(torch, np, runtime, frontend, audio) -> dict[str, float]:
     for name, d in origins.items():
         kind = type(model.get_submodule(name)).__name__ if not name.startswith("(") else name
         kinds.setdefault(kind, []).append((name, d))
-    for kind, rows in kinds.items():
-        worst = max(rows, key=lambda r: r[1])
-        print(f"    batch 2 vs 1 at equal input, row 0 differs in {len(rows)} {kind} "
-              f"(own code; e.g. {rows[0][0]}; max|Δ| {worst[1]:.3g} in {worst[0]})", flush=True)
+    for kind, names in kinds.items():
+        worst = max(names, key=lambda r: r[1])
+        print(f"    batch {rows} vs 1 at equal input, row 0 differs in {len(names)} {kind} "
+              f"(own code; e.g. {names[0][0]}; max|Δ| {worst[1]:.3g} in {worst[0]})", flush=True)
     print(f"    {len(origins)} origins, {len(varying)} of {len(deltas)} modules vary with the "
           f"batch size", flush=True)
     return origins
@@ -706,12 +794,19 @@ def cache_check(np, load_audio, runtime, cache_cls) -> float:
     return worst
 
 
-def serve(np, manifest) -> None:
+def serve(np, manifest, load_audio) -> dict:
     """The port's server in-process with the tracker engine; two ws_client
-    streams at once; each must get a verse_match for its clip's verse."""
+    streams at once, each of which must get a verse_match for its clip's
+    verse; then the port's ws_bench with WS_CLIENTS concurrent clients over
+    the STREAM_IDS clips, flat out, each at sequence accuracy 1.0, with the
+    per-message latency. Returns ws_bench's result."""
+    from tilawa_tpu_torch.eval import ws_bench
     from tilawa_tpu_torch.streaming import ws as wslib
     from tilawa_tpu_torch.streaming import ws_client
     from tilawa_tpu_torch.streaming.server import ModelLoader, RecitationServer
+
+    by_id = {s["id"]: s for s in manifest.values()}
+    loaded = [(by_id[i], load_audio(CORPUS / by_id[i]["file"])) for i in STREAM_IDS]
 
     async def scenario():
         loader = ModelLoader(device=DEVICE).start()
@@ -734,28 +829,299 @@ def serve(np, manifest) -> None:
                     ws_client.stream_file(str(CORPUS / clip), "127.0.0.1", port, wait_s=10.0)
                     for clip in SERVER_CLIPS))
             elapsed = time.perf_counter() - t
+            micro = server._model_state().get("micro_batch", {})
+            print(f"  two clients streamed in {elapsed:.1f} s; dispatcher {micro}", flush=True)
+            for clip, messages in zip(SERVER_CLIPS, results):
+                want = {(v["surah"], v["ayah"]) for v in manifest[clip]["expected_verses"]}
+                got = [(m["surah"], m["ayah"]) for m in messages if m.get("type") == "verse_match"]
+                print(f"  {clip}: {len(messages)} messages, verse_match {got}, expected "
+                      f"{sorted(want)}", flush=True)
+                if not want & set(got):
+                    raise AssertionError(f"{clip}: no verse_match for {sorted(want)}")
+            bench = await ws_bench.replay("127.0.0.1", port, loaded, clients=WS_CLIENTS)
         finally:
             srv.close()
             await srv.wait_closed()
-        micro = server._model_state().get("micro_batch", {})
-        print(f"  two clients streamed in {elapsed:.1f} s; dispatcher {micro}", flush=True)
-        for clip, messages in zip(SERVER_CLIPS, results):
-            want = {(v["surah"], v["ayah"]) for v in manifest[clip]["expected_verses"]}
-            got = [(m["surah"], m["ayah"]) for m in messages if m.get("type") == "verse_match"]
-            print(f"  {clip}: {len(messages)} messages, verse_match {got}, expected "
-                  f"{sorted(want)}", flush=True)
-            if not want & set(got):
-                raise AssertionError(f"{clip}: no verse_match for {sorted(want)}")
+        for r in bench["per_client"]:
+            print(f"  ws_bench {r['id']:18s} seq_acc {r['sequence_accuracy']:.2f} got {r['got']} "
+                  f"expected {r['expected']}; {r['messages']} messages, latency p50/p90 "
+                  f"{r['message_latency_p50_s']}/{r['message_latency_p90_s']} s; wall "
+                  f"{r['wall_s']} s for {r['audio_s']} s of audio", flush=True)
+        print(f"  ws_bench: {bench['clients']} clients, {bench['n']} clips flat out in "
+              f"{bench['wall_s']} s; per-message latency p50 {bench['message_latency_p50_s']} s "
+              f"p90 {bench['message_latency_p90_s']} s over {bench['n_messages']} messages; "
+              f"dispatcher {server._model_state().get('micro_batch', {})}", flush=True)
+        wrong = [r["id"] for r in bench["per_client"] if r["sequence_accuracy"] != 1.0]
+        if wrong or bench["n"] != len(STREAM_IDS):
+            raise AssertionError(f"ws_bench below sequence accuracy 1.0: {wrong}")
+        return bench
 
     previous = os.environ.get("TILAWA_CHECKPOINT")
     os.environ["TILAWA_CHECKPOINT"] = str(STREAM_BUNDLE)
     try:
-        asyncio.run(scenario())
+        return asyncio.run(scenario())
     finally:
         if previous is None:
             del os.environ["TILAWA_CHECKPOINT"]
         else:
             os.environ["TILAWA_CHECKPOINT"] = previous
+
+
+def profile_medians(per_sample: list[dict]) -> dict[str, tuple[float, int]]:
+    """(median seconds, clips) of each TILAWA_PROFILE stage over the clips
+    that ran it (a clip the text gate passes records build and rerank as 0,
+    a clip without TTA no tta)."""
+    out = {}
+    for stage in ("forward", "decode", "build", "rerank", "tta"):
+        vals = sorted(r["profile"][stage] for r in per_sample
+                      if r.get("profile", {}).get(stage, 0.0) > 0.0
+                      or (stage in ("forward", "decode") and "profile" in r))
+        if vals:
+            out[stage] = (vals[len(vals) // 2], len(vals))
+    return out
+
+
+def eval_path(torch, kernels, get_experiment, load_manifest, run_experiment) -> tuple:
+    """c2c-direct-mixed-tta through the port's runner over every v1 sample:
+    every scored clip must match its manifest, at least MIN_EVAL_CLIPS of
+    them; launch counts zeroed just before and read just after. Returns
+    (recognizer, result, launches)."""
+    rec = get_experiment(MAIN_EXPERIMENT, DEVICE)
+    rec.profile = True
+    samples, corpus_dir = load_manifest("v1")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rec.runtime.forwards = 0
+    res = run_experiment(MAIN_EXPERIMENT, rec, samples, corpus_dir)
+    torch.cuda.synchronize()
+    launches, forwards = dict(kernels.LAUNCHES), rec.runtime.forwards
+    rec.profile = False
+    status: dict[str, list[str]] = {}
+    for d in res["dispositions"]:
+        status.setdefault(d["status"], []).append(d["file"] if "file" in d else d["id"])
+    compressed = [f for f in status.get("undecodable", []) if f.endswith((".mp3", ".m4a"))]
+    print(f"  {MAIN_EXPERIMENT}: N={res['total']} of {res['total_manifest']} manifest samples; "
+          f"recall {res['recall']:.4f} precision {res['precision']:.4f} seq_acc "
+          f"{res['sequence_accuracy']:.4f}", flush=True)
+    for st, files in sorted(status.items()):
+        print(f"  {st}: {len(files)} {sorted(files)}", flush=True)
+    print(f"  mp3/m4a decode here: {'no' if compressed else 'yes'} "
+          f"({len(compressed)} compressed clips undecodable)", flush=True)
+    print(f"  latency p50 {res['p50_latency'] * 1e3:.2f} ms, mean {res['avg_latency'] * 1e3:.2f} "
+          f"ms, p90 {res['p90_latency'] * 1e3:.2f} ms (host clock, warm-up excluded)", flush=True)
+    print("  TILAWA_PROFILE stage medians over the clips that ran the stage (ms): " + ", ".join(
+        f"{k} {v * 1e3:.2f} ({n})" for k, (v, n) in profile_medians(res["per_sample"]).items()),
+        flush=True)
+    print(f"  forwards {forwards}; launches {launches}", flush=True)
+    if JAX_RECORDED_RUN.exists():
+        recorded = json.loads(JAX_RECORDED_RUN.read_text())[0]["per_sample"]
+        jax_pred = {r["id"]: [(e["surah"], e["ayah"]) for e in r["predicted"]] for r in recorded}
+        same = sum(1 for r in res["per_sample"]
+                   if jax_pred.get(r["id"]) == [(e["surah"], e["ayah"]) for e in r["predicted"]])
+        print(f"  {same} of {res['total']} clips emit the verses of the JAX package's recorded "
+              f"run ({JAX_RECORDED_RUN.name})", flush=True)
+    else:
+        print(f"  (the JAX package's recorded run {JAX_RECORDED_RUN.name} is not in this copy)",
+              flush=True)
+    if status.get("error"):
+        raise AssertionError(f"clips that raised: {status['error']}")
+    if (res["recall"], res["precision"], res["sequence_accuracy"]) != (1.0, 1.0, 1.0):
+        wrong = [r["id"] for r in res["per_sample"] if r["sequence_accuracy"] != 1.0]
+        raise AssertionError(f"clips that miss their manifest verses: {wrong}")
+    if res["total"] < MIN_EVAL_CLIPS:
+        raise AssertionError(f"only {res['total']} clips scored (want >= {MIN_EVAL_CLIPS})")
+    if forwards == 0 or launches["int4_matmul"] != INT4_LAUNCHES_PER_FORWARD * forwards \
+            or launches["log_mel"] != forwards:
+        raise AssertionError("the eval path did not run every kernel once per layer and forward")
+    return rec, res, launches
+
+
+def other_experiments(get_experiment, load_manifest, run_experiment) -> None:
+    """The other registered experiments over CLIPS; each must score every
+    clip without an error disposition."""
+    samples, corpus_dir = load_manifest("v1")
+    samples = [s for s in samples if s["file"] in CLIPS]
+    for name in OTHER_EXPERIMENTS:
+        t = time.perf_counter()
+        res = run_experiment(name, get_experiment(name, DEVICE), samples, corpus_dir)
+        errors = [d for d in res["dispositions"] if d["status"] == "error"]
+        print(f"  {name:24s} N={res['total']} recall {res['recall']:.4f} precision "
+              f"{res['precision']:.4f} seq_acc {res['sequence_accuracy']:.4f} p50 "
+              f"{res['p50_latency'] * 1e3:.2f} ms ({res['acoustics']} acoustics; "
+              f"{time.perf_counter() - t:.1f} s with load)", flush=True)
+        if errors or res["total"] != len(CLIPS):
+            raise AssertionError(f"{name}: {len(errors)} errors, {res['total']} clips scored")
+
+
+def no_sync_check(torch, np, runtime) -> dict:
+    """forward_batch_async queues without a host sync.
+
+    Gates: two B=8 calls at NO_SYNC_BUCKET run under
+    torch.cuda.set_sync_debug_mode("error"), which raises on every
+    synchronizing call PyTorch makes (a pageable upload raises under it:
+    the negative control); and with NO_SYNC_SLEEP_S of device sleep queued
+    first, the host reaches block HOOK_BLOCK of the first call (the
+    uploads, the frontend and the blocks before it queued, some hundreds of
+    launches, below the launch queue's depth) within NO_SYNC_SHARE of the
+    sleep, while the device still sleeps. A pageable upload would make it
+    wait out the sleep.
+
+    Printed, not gated: the two calls' host enqueue and device time and
+    whether the device is busy when they return, at NO_SYNC_BUCKET and
+    BUSY_BUCKET. That depends on which side is slower: the host's enqueue
+    of ~2,000 eager launches a B=8 forward, or the device."""
+    rng = np.random.default_rng(SEED + 3)
+    out = {}
+    for n in (NO_SYNC_BUCKET, BUSY_BUCKET):
+        waves = [(rng.standard_normal(n) * 0.1).astype(np.float32) for _ in range(BATCH)]
+        runtime.forward_batch(waves)                      # warm the shape
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t = time.perf_counter()
+        if n == NO_SYNC_BUCKET:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            runtime.forward_batch_async(waves)
+            runtime.forward_batch_async(waves)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host = time.perf_counter() - t
+        busy = not torch.cuda.current_stream().query()
+        end.record()
+        torch.cuda.synchronize()
+        device = start.elapsed_time(end) / 1e3
+        print(f"  two B={BATCH} forward_batch_async at {n}"
+              + (" (sync debug mode: error)" if n == NO_SYNC_BUCKET else "")
+              + f": host enqueue {host * 1e3:.2f} ms, device {device * 1e3:.2f} ms "
+                f"(ratio {host / device:.3f}), device busy at return: {busy}", flush=True)
+        out[n] = {"host_s": host, "device_s": device, "busy": busy}
+        if n == NO_SYNC_BUCKET:
+            slept_waves = waves
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.from_numpy(np.zeros(8, np.float32)).to(DEVICE)
+    except RuntimeError:
+        print("  no synchronizing call in the two forwards; negative control: a pageable "
+              "upload raises under the same mode", flush=True)
+    else:
+        raise AssertionError("sync debug mode did not catch a pageable upload")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    reached: list[tuple[float, bool]] = []
+
+    def stamp(_module, _args):
+        if not reached:
+            reached.append((time.perf_counter(), torch.cuda.current_stream().query()))
+
+    torch.cuda.synchronize()
+    handle = runtime.model.blocks[HOOK_BLOCK].register_forward_pre_hook(stamp)
+    try:
+        torch.cuda._sleep(int(NO_SYNC_SLEEP_S * SLEEP_CYCLES_PER_S))
+        t = time.perf_counter()
+        runtime.forward_batch_async(slept_waves)
+        runtime.forward_batch_async(slept_waves)
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    at, idle = reached[0][0] - t, reached[0][1]
+    print(f"  behind a {NO_SYNC_SLEEP_S:.1f} s device sleep the host reached block "
+          f"{HOOK_BLOCK} of the first forward after {at * 1e3:.2f} ms, device "
+          f"{'idle' if idle else 'still busy'}", flush=True)
+    out["reached_s"] = at
+    if idle or not at < NO_SYNC_SHARE * NO_SYNC_SLEEP_S:
+        raise AssertionError(f"the queued forward waited for the device ({at:.4f} s, idle {idle})")
+    return out
+
+
+def batched_path(torch, np, kernels, frontend, rec, eval_res, audios) -> tuple[dict, dict]:
+    """batched_corpus_eval at B=8 over the eval's decodable clips, counters
+    zeroed just before and read just after: each clip's verses equal the
+    eval's, recall and sequence accuracy 1.0, 189 int4 launches per
+    forward. Then every clip's B=8 row against its B=1 forward (greedy ids
+    equal, max |Δ log-prob| printed; the ops that vary with B named when
+    it is not 0). Returns (result, launches)."""
+    from tilawa_tpu_torch.eval.batched import batched_corpus_eval
+    from tilawa_tpu_torch.eval.metrics import predict_to_emissions
+    from tilawa_tpu_torch.pipeline.runtime import bucket_length
+
+    runtime = rec.runtime
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    runtime.forwards = 0
+    res = batched_corpus_eval(rec, audios, batch_size=BATCH)
+    torch.cuda.synchronize()
+    launches, forwards = dict(kernels.LAUNCHES), runtime.forwards
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  N={res['n']} audio {res['audio_s']} s: {res['audio_sec_per_sec']} audio-s/s; wall "
+          f"{res['wall_s']} s, fetch_wait {res['fetch_wait_s']} s, decode {res['decode_s']} s, "
+          f"predict {res['predict_s']} s; TTA clips {res['n_tta']}; recall {res['recall']} "
+          f"seq_acc {res['seq_acc']}; peak memory {peak} B", flush=True)
+    print(f"  forwards {forwards} (warm-up included); launches {launches}", flush=True)
+    eval_pred = {r["id"]: [(e["surah"], e["ayah"]) for e in r["predicted"]]
+                 for r in eval_res["per_sample"]}
+    differ = [sid for sid, p in res["predictions"].items()
+              if [(e["surah"], e["ayah"]) for e in predict_to_emissions(p)] != eval_pred[sid]]
+    if differ:
+        raise AssertionError(f"batched verses differ from the eval's: {differ}")
+    if res["recall"] != 1.0 or res["seq_acc"] != 1.0:
+        raise AssertionError(f"batched recall {res['recall']} seq_acc {res['seq_acc']}")
+    if forwards == 0 or launches["int4_matmul"] != INT4_LAUNCHES_PER_FORWARD * forwards \
+            or launches["log_mel"] != forwards:
+        raise AssertionError("the batched path did not run every kernel once per layer and forward")
+
+    groups: dict[int, list] = {}
+    for sid, audio, _exp in audios:
+        groups.setdefault(bucket_length(len(audio)), []).append((sid, audio))
+    worst, worst_bucket, wrong = 0.0, None, []
+    for bucket, clips in sorted(groups.items()):
+        for pos in range(0, len(clips), BATCH):
+            chunk = clips[pos:pos + BATCH]
+            waves = [a for _s, a in chunk] + [np.zeros(bucket, np.float32)] * (BATCH - len(chunk))
+            lp_b, lens_b, ids_b = runtime.forward_batch(waves)
+            for j, (sid, audio) in enumerate(chunk):
+                lp_1, ids_1, t_1 = runtime.forward(audio)
+                t_b = int(lens_b[j])
+                if t_b != t_1 or not np.array_equal(ids_b[j, :t_b], ids_1):
+                    wrong.append(sid)
+                    worst_bucket = worst_bucket or bucket
+                    continue
+                delta = float((lp_b[j, :t_1] - lp_1[:t_1]).abs().max())
+                if delta > worst:
+                    worst, worst_bucket = delta, bucket
+    print(f"  B={BATCH} rows against B=1 forwards: greedy ids equal for "
+          f"{len(audios) - len(wrong)} of {len(audios)} clips; max|Δ log-prob| {worst:.4g}",
+          flush=True)
+    if worst_bucket is not None:
+        from tilawa_tpu_torch.data.audio import load_audio
+
+        print(f"  the ops that vary with the batch size at B={BATCH}, N={worst_bucket}:",
+              flush=True)
+        batch_variance(torch, np, runtime, frontend, load_audio(CORPUS / "long_033_056.wav"),
+                       rows=BATCH, n=worst_bucket)
+    if wrong:
+        raise AssertionError(f"B={BATCH} greedy ids differ from B=1 for {wrong}")
+    return res, launches
+
+
+def bench_child() -> dict:
+    """python -m tilawa_tpu_torch.bench as a child process with a budget:
+    its JSON line must be whole (partial false, no error) with recall,
+    sequence accuracy and batched recall 1.0."""
+    env = dict(os.environ, BENCH_BUDGET_S=str(BENCH_BUDGET_S))
+    proc = subprocess.run([sys.executable, "-m", "tilawa_tpu_torch.bench"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=BENCH_BUDGET_S + 120)
+    for line in proc.stderr.strip().splitlines()[-12:]:
+        print(f"    {line}", flush=True)
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"  {json.dumps(line)}", flush=True)
+    bad = {k: line.get(k) for k in ("partial", "recall", "seq_acc", "batched_recall")
+           if line.get(k) != (False if k == "partial" else 1.0)}
+    if proc.returncode != 0 or "error" in line or "batched_error" in line or bad:
+        raise AssertionError(f"bench: rc {proc.returncode}, {bad}, error {line.get('error')}")
+    return line
 
 
 def host_ms(runtime, recognizer, audio) -> tuple[float, float]:
@@ -842,7 +1208,8 @@ def run() -> int:
 
     from tilawa_tpu_torch.data.audio import load_audio
     from tilawa_tpu_torch.eval import validate_streaming
-    from tilawa_tpu_torch.eval.experiments import load_champion, load_runtime
+    from tilawa_tpu_torch.eval.experiments import get_experiment, load_champion, load_runtime
+    from tilawa_tpu_torch.eval.runner import load_manifest, run_experiment
     from tilawa_tpu_torch.eval.metrics import best_emission_score, predict_to_emissions
     from tilawa_tpu_torch.io.bundle import load_variables, shipped_checkpoint
     from tilawa_tpu_torch.ops import frontend, kernels, quant
@@ -926,7 +1293,7 @@ def run() -> int:
                 or launches["log_mel"] != forwards:
             raise AssertionError("the main path did not run every kernel once per layer")
         for e in entries[:2]:
-            e["launches"] = launches[e["name"]]
+            e["clips_launches"] = launches[e["name"]]
 
     with phase("plain path"):
         config, variables = load_variables(shipped_checkpoint())
@@ -946,6 +1313,29 @@ def run() -> int:
     trace_clips = [(c, load_audio(CORPUS / c)) for c in (CLIPS[1], CLIPS[-1])]
     with phase("trace"):
         trace(torch, runtime, recognizer, trace_clips)
+
+    with phase("eval"):
+        eval_rec, eval_res, eval_launches = eval_path(
+            torch, kernels, get_experiment, load_manifest, run_experiment)
+        for e in entries[:2]:
+            e["launches"] = eval_launches[e["name"]]
+        other_experiments(get_experiment, load_manifest, run_experiment)
+
+    with phase("batched"):
+        audios = []
+        for sample in load_manifest("v1")[0]:
+            if sample["id"] in {r["id"] for r in eval_res["per_sample"]}:
+                audios.append((sample["id"], load_audio(CORPUS / sample["file"]),
+                               sample.get("expected_verses",
+                                          [{"surah": sample["surah"], "ayah": sample["ayah"]}])))
+        no_sync_check(torch, np, eval_rec.runtime)
+        _bres, batched_launches = batched_path(torch, np, kernels, frontend, eval_rec, eval_res,
+                                               audios)
+        for e in entries[:2]:
+            e["batched_launches"] = batched_launches[e["name"]]
+
+    with phase("bench"):
+        bench_child()
 
     with phase("streaming"):
         stream_rt = load_runtime(STREAM_BUNDLE, DEVICE, long_chunking=False)
@@ -983,7 +1373,7 @@ def run() -> int:
             raise AssertionError(f"cache vs forward_long: max|Δ log-prob| {worst} > {CACHE_TOL}")
 
     with phase("server"):
-        serve(np, manifest)
+        serve(np, manifest, load_audio)
 
     with phase("champion again"):
         for name, audio in trace_clips:

@@ -23,6 +23,8 @@ bitwise. The streaming cache against forward_long on stream6-int8: 1e-5,
 the reference's contract (tests/test_runtime_long.py)."""
 
 import dataclasses
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -306,3 +308,106 @@ def test_streaming_cache_matches_forward_long(cuda):
         assert tv_c == tv_f and np.array_equal(ids_c, ids_f)
         assert float((lp_c[:tv_c] - lp_f[:tv_f]).abs().max()) <= 1e-5
     assert cache.hits >= 1
+
+
+@pytest.fixture(scope="module")
+def champion_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from tilawa_tpu_torch.eval.experiments import load_champion
+
+    return load_champion("cuda")
+
+
+def test_forward_batch_async_makes_no_host_sync(champion_cuda):
+    """Two B=8 forwards at the 512000 bucket make no synchronizing call
+    (PyTorch's sync debug mode raises on one, and does on a pageable
+    upload). Behind a 0.3 s device sleep the host queues the uploads, the
+    frontend and the first two blocks of the first forward (some hundreds
+    of launches, below the launch queue's depth) in under half the sleep,
+    while the device still sleeps."""
+    rng = np.random.default_rng(5)
+    waves = [(rng.standard_normal(512000) * 0.1).astype(np.float32) for _ in range(8)]
+    champion_cuda.forward_batch(waves)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        champion_cuda.forward_batch_async(waves)
+        champion_cuda.forward_batch_async(waves)
+        with pytest.raises(RuntimeError):
+            torch.from_numpy(np.zeros(8, np.float32)).to("cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    reached = []
+
+    def stamp(_module, _args):
+        if not reached:
+            reached.append((time.perf_counter(), torch.cuda.current_stream().query()))
+
+    handle = champion_cuda.model.blocks[2].register_forward_pre_hook(stamp)
+    try:
+        torch.cuda._sleep(int(0.3 * 1.98e9))
+        t = time.perf_counter()
+        champion_cuda.forward_batch_async(waves)
+        champion_cuda.forward_batch_async(waves)
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    at, idle = reached[0][0] - t, reached[0][1]
+    print(f"host reached block 2 after {at:.4f} s, device idle then: {idle}")
+    assert not idle and at < 0.15
+
+
+def test_batched_rows_equal_single_forwards(champion_cuda):
+    """Each v1 wav clip's row of a B=8 bucket batch (zero waves padding the
+    last batch) against its B=1 forward: greedy ids equal; max |Δ log-prob|
+    printed (the kernels' rows do not depend on M, the frontend sums per
+    row)."""
+    from tilawa_tpu_torch.data.audio import load_audio
+    from tilawa_tpu_torch.pipeline.runtime import bucket_length
+
+    corpus = Path(__file__).resolve().parent.parent / "benchmark" / "test_corpus"
+    groups: dict[int, list] = {}
+    for path in sorted(corpus.glob("*.wav")):
+        audio = load_audio(path)
+        groups.setdefault(bucket_length(len(audio)), []).append(audio)
+    worst = 0.0
+    for bucket, clips in sorted(groups.items()):
+        for pos in range(0, len(clips), 8):
+            chunk = clips[pos:pos + 8]
+            waves = chunk + [np.zeros(bucket, np.float32)] * (8 - len(chunk))
+            lp_b, lens_b, ids_b = champion_cuda.forward_batch(waves)
+            for j, audio in enumerate(chunk):
+                lp_1, ids_1, t_1 = champion_cuda.forward(audio)
+                assert int(lens_b[j]) == t_1
+                np.testing.assert_array_equal(ids_b[j, :t_1], ids_1)
+                worst = max(worst, float((lp_b[j, :t_1] - lp_1[:t_1]).abs().max()))
+    print(f"max |Δ log-prob| B=8 vs B=1: {worst}")
+
+
+@pytest.mark.parametrize("k,n", [(512, 2048), (2048, 512), (512, 1025), (2560, 512)])
+def test_int4_kernel_at_batched_m(cuda, k, n):
+    """The batched eval's largest M (B=8 x 800 frames) against the plain
+    version at the per-clip tolerance, rows bitwise those of a smaller M."""
+    m = 6400
+    rng = np.random.default_rng(k + n)
+    packed, scales = quant.pack_int4(rng.standard_normal((k, n)).astype(np.float32))
+    packed, scales = torch.from_numpy(packed).to(cuda), torch.from_numpy(scales).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    out = quant.int4_matmul(x, packed, scales)
+    ref = quant.int4_matmul_plain(x, packed, scales)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(_bits(quant.int4_matmul(x[:400], packed, scales)), _bits(out[:400]))
+
+
+def test_log_mel_kernel_at_the_largest_batched_bucket(cuda):
+    pre = _pre(cuda, 8, 1024000, 8)
+    tables = frontend.mel_tables(cuda)
+    out = frontend.fused_log_mel(pre, tables)
+    ref = frontend.log_mel_plain(pre, tables)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 2e-3
+    alone = frontend.fused_log_mel(pre[5:6].contiguous(), tables)
+    assert torch.equal(alone.view(torch.int32), out[5:6].view(torch.int32))

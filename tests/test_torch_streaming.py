@@ -22,6 +22,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from tilawa_tpu.data.quran import QuranDB as JaxQuranDB  # noqa: E402
 from tilawa_tpu.data.token_store import TokenStore as JaxTokenStore  # noqa: E402

@@ -13,12 +13,22 @@ counterpart of `tilawa_tpu/data/quran.py` is `tilawa_tpu_torch/data/quran.py`).
               with nvcc into _build/ at first use
   pipeline  — encoder runtime (long-clip stitching, streaming encoder
               cache), candidate retrieval, CTC rerank, Recognizer
-  streaming — recitation tracker and session (copied), micro-batch
-              dispatcher, WebSocket server
-  eval      — runtime loading, metrics, the streaming validation replay
+  streaming — recitation tracker and session, verse tracker and
+              StreamingPipeline (copied), micro-batch dispatcher,
+              WebSocket server
+  eval      — experiment registry and runtime loading, the runner, the
+              batched corpus eval, metrics, the streaming validation
+              replay, the WS endpoint bench
+  train     — post-training int4/mixed quantization of a bundle's tree
   data/text — host code copied from the JAX package
 
-Entry points run on the card unless the caller passes device="cpu".
+Entry points, on the card unless --device cpu (or device="cpu") is passed:
+
+  python -m tilawa_tpu_torch.cli <audio>           recognize clips
+  python -m tilawa_tpu_torch.eval.runner           an experiment over a corpus
+  python -m tilawa_tpu_torch.bench                 the headline JSON line
+  python -m tilawa_tpu_torch.streaming.server      the WebSocket server
+  python -m tilawa_tpu_torch.eval.ws_bench         replay clips against it
 """
 
 __version__ = "0.1.0"

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tilawa_tpu_torch.device import upload
 from tilawa_tpu_torch.ops.frontend import MelTables, log_mel_spectrogram, mel_tables
 from tilawa_tpu_torch.ops.quant import (
     INT4_BLOCK,
@@ -330,6 +331,21 @@ def _rel_shift(qp: torch.Tensor, t: int) -> torch.Tensor:
     return x.reshape(b, h, t, 2 * t - 1)[..., :t]
 
 
+def _row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [B, H, M, K] @ b ([B, H, K, N], or [H, K, N] shared by the rows),
+    one batch row at a time. cuBLAS picks its algorithm, and with it the
+    order of each output's sums, from the batch count: on the H100 the
+    attention products at T = 50 and 100 frames round a row batched with
+    others differently from the row alone. Row by row every row is the
+    same [H, M, K] @ [H, K, N] call whatever B is."""
+    if a.shape[0] == 1:
+        return torch.matmul(a, b)
+    out = torch.empty(a.shape[:-1] + b.shape[-1:], dtype=a.dtype, device=a.device)
+    for i in range(a.shape[0]):
+        torch.matmul(a[i], b[i] if b.dim() == 4 else b, out=out[i])
+    return out
+
+
 class RelPosSelfAttention(nn.Module):
     """Transformer-XL relative-position MHSA with u/v biases."""
 
@@ -358,14 +374,14 @@ class RelPosSelfAttention(nn.Module):
 
         qu = (q + self.bias_u.to(dt)).transpose(1, 2)          # [B,H,T,dh]
         qv = (q + self.bias_v.to(dt)).transpose(1, 2)
-        content = torch.matmul(qu, k.permute(0, 2, 3, 1))       # [B,H,T,T]
-        qp = torch.matmul(qv, p.permute(1, 2, 0))               # [B,H,T,2T-1]
+        content = _row_matmul(qu, k.permute(0, 2, 3, 1))        # [B,H,T,T]
+        qp = _row_matmul(qv, p.permute(1, 2, 0))                # [B,H,T,2T-1]
         scores = (content + _rel_shift(qp, t)).float() / math.sqrt(dh)
 
         key_mask = mask[:, None, None, :, 0]                    # [B,1,1,T]
         scores = torch.where(key_mask, scores, -1e30)
         attn = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.matmul(attn, v.transpose(1, 2))             # [B,H,T,dh]
+        out = _row_matmul(attn, v.transpose(1, 2))              # [B,H,T,dh]
         return self.out(out.transpose(1, 2).reshape(b, t, d))
 
 
@@ -438,10 +454,45 @@ class FastConformerCTC(nn.Module):
         mask = (torch.arange(t, device=x.device)[None, :] < enc_lengths[:, None])[..., None]
         x = torch.where(mask, x, 0.0)
         # Built once per forward on the host in float64 like the reference,
-        # uploaded once: a pageable upload inside every block would make the
-        # host wait for the device 17 times per forward.
-        pos = torch.from_numpy(rel_positional_encoding(t, cfg.d_model)).to(x.device, cfg.dtype)
+        # uploaded once without a host sync (device.upload: pinned, non-
+        # blocking), then cast on the device.
+        pos = upload(rel_positional_encoding(t, cfg.d_model), x.device).to(cfg.dtype)
         for block in self.blocks:
             x = block(x, mask, pos)
         logits = self.ctc_head(x)
         return torch.log_softmax(logits.float(), dim=-1), enc_lengths.to(torch.int32)
+
+
+def count_params(tree) -> int:
+    """Elements over every leaf of a nested dict of arrays: a bundle's
+    variables as the port loads them (numpy leaves), packed int4 bytes and
+    scales counted as stored, as the JAX package's count_params counts the
+    same tree's leaves."""
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return int(np.prod(np.shape(tree)))
+
+
+def forward_flops(cfg: FastConformerConfig, audio_seconds: float) -> float:
+    """Analytic matmul FLOPs of one encoder forward over `audio_seconds`
+    of 16 kHz audio (multiply+add counted as 2). Used for the bench's MFU
+    estimate against the H100 SXM's dense bf16 rate; conv-subsampling and
+    the T^2 attention-score terms are included, elementwise/norm work is
+    not (negligible against the matmuls)."""
+    d = cfg.d_model
+    t_mel = audio_seconds * 100.0                    # 160-sample hop
+    t_enc = t_mel / cfg.subsampling_factor
+    ch = cfg.subsampling_channels
+    # dw-striding stages: pointwise-ish channel mixing at T/2, T/4, T/8
+    sub = 2 * (t_mel / 2 * 9 * cfg.n_mels * ch
+               + t_mel / 4 * 9 * ch * ch
+               + t_mel / 8 * 9 * ch * ch)
+    proj = 2 * t_enc * (ch * cfg.n_mels // cfg.subsampling_factor) * d
+    ff = 2 * 2 * (2 * d * cfg.ff_expansion * d)       # macaron pair / frame
+    attn_proj = 2 * 5 * d * d                         # q,k,v,pos,out / frame
+    conv = 2 * (d * 2 * d + cfg.conv_kernel * d + d * d)
+    per_frame = ff + attn_proj + conv
+    scores = 4 * t_enc * t_enc * d * cfg.num_layers   # qk^T + att*v
+    layers = cfg.num_layers * per_frame * t_enc + scores
+    head = 2 * t_enc * d * (cfg.vocab_size + 1)
+    return float(sub + proj + layers + head)

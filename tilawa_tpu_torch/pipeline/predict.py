@@ -7,6 +7,11 @@ Port of tilawa_tpu/pipeline/predict.py Recognizer on the torch runtime:
   text-confidence gate → three-strategy candidate build → CTC rerank on
   the device (span penalty 0.5) → best.
 
+rerank_mode "always" (ctc-alignment) reranks every clip and "never"
+(fastconformer-zeroshot) none. A runtime without forward (an oracle)
+hands over host log-probs: the greedy decode reads them on the host and
+the rerank scores them on the recognizer's device.
+
 TTA (reference: c2c-direct-mixed-tta/run.py): anchor 1.0x pass; if score
 < 0.5, the 0.9x/1.1x perturbed passes run as one batched 2-way forward
 (per-variant forwards for clips past LONG_THRESHOLD), then majority vote
@@ -15,22 +20,29 @@ with score-pick fallback.
 transcribe_result is the streaming tracker's acoustic decode: text, the
 collapsed ids and the log-probs, which stay on the device for the
 tracker's CTC fusion scoring.
+
+With TILAWA_PROFILE set (read at construction) predict_audio leaves its
+stage wall times in last_profile: forward (with the id fetch and
+decode), decode, build (retrieval), rerank, tta and audio_s.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from tilawa_tpu_torch.data.audio import load_audio, speed_perturb
 from tilawa_tpu_torch.data.normalizer import normalize_arabic
 from tilawa_tpu_torch.data.quran import QuranDB
 from tilawa_tpu_torch.data.token_store import TokenStore
+from tilawa_tpu_torch.device import resolve_device, upload
 from tilawa_tpu_torch.models.convert import packed_size_bytes
-from tilawa_tpu_torch.ops.ctc import collapse_ctc
+from tilawa_tpu_torch.ops.ctc import collapse_ctc, pad_frames
 from tilawa_tpu_torch.pipeline.candidates import build_candidates, text_match
 from tilawa_tpu_torch.pipeline.rerank import ctc_rerank
 from tilawa_tpu_torch.pipeline.runtime import LONG_THRESHOLD, StreamingEncoderCache
@@ -53,9 +65,9 @@ def _empty(transcript: str = "") -> dict:
 
 
 class Recognizer:
-    """predict()/transcribe() over an EncoderRuntime (the JAX Recognizer's
-    gated rerank mode; the "always"/"never" modes of the other experiment
-    families are not ported yet)."""
+    """predict()/transcribe() over an acoustic runtime: an EncoderRuntime
+    (forward, forward_batch: log-probs on the device) or any runtime
+    exposing log_probs(audio) -> ([T, V], t_valid) and log_probs_batch."""
 
     def __init__(
         self,
@@ -64,13 +76,40 @@ class Recognizer:
         token_store: TokenStore | None = None,
         tokenizer=None,
         tta: bool = False,
+        rerank_mode: str = "gated",
+        device: str | torch.device | None = None,
     ):
+        """rerank_mode: "gated" (the champion: CTC rerank only when the
+        text match scores < 0.80, reference c2c-direct/run.py:66), "always"
+        (ctc-alignment-style forced alignment of every candidate) or
+        "never" (nvidia-fastconformer-style zero-shot text matching).
+        device: where host log-probs are scored; the runtime's device by
+        default, else the card."""
+        if rerank_mode not in ("gated", "always", "never"):
+            raise ValueError(f"unknown rerank_mode {rerank_mode!r}")
         self.runtime = runtime
         self.db = db or QuranDB()
         self.token_store = token_store or TokenStore.load_default()
         self.tokenizer = tokenizer or self.token_store.tokenizer
         self.tta = tta
+        self.rerank_mode = rerank_mode
+        if device is None and hasattr(runtime, "device"):
+            self.device = runtime.device
+        else:
+            self.device = resolve_device(device)
+        self.profile = os.getenv("TILAWA_PROFILE", "") not in ("", "0", "false")
+        self.last_profile: dict[str, float] = {}
         self._stream_cache: StreamingEncoderCache | None = None
+
+    # ------------------------------------------------------------ decoding
+
+    def greedy_decode(self, log_probs, t_valid: int) -> str:
+        """Greedy CTC text of host (numpy) or device log-probs."""
+        if isinstance(log_probs, torch.Tensor):
+            ids = log_probs[:t_valid].argmax(dim=-1).cpu().numpy()
+        else:
+            ids = np.asarray(log_probs[:t_valid]).argmax(axis=-1)
+        return self.decode_ids(ids)
 
     def decode_ids(self, ids: np.ndarray) -> str:
         deduped = collapse_ctc(np.asarray(ids), self.runtime.blank_id)
@@ -78,27 +117,50 @@ class Recognizer:
             return ""
         return normalize_arabic(self.tokenizer.decode(deduped).strip())
 
-    def _predict_from_logprobs(self, log_probs, t_valid: int, transcript: str) -> dict:
+    # ------------------------------------------------------------- predict
+
+    def _on_device(self, log_probs, t_valid: int):
+        """Log-probs for the rerank: a device tensor as it is; host
+        log-probs padded to a frame bucket and uploaded to self.device."""
+        if isinstance(log_probs, torch.Tensor):
+            return log_probs
+        padded, _t = pad_frames(np.asarray(log_probs[:t_valid], dtype=np.float32))
+        return upload(padded, self.device)
+
+    def _predict_from_logprobs(
+        self, log_probs, t_valid: int, transcript: str | None = None
+    ) -> dict:
+        t0 = time.perf_counter()
+        if transcript is None:
+            transcript = self.greedy_decode(log_probs, t_valid)
+        t1 = time.perf_counter()
         if not transcript.strip():
             return _empty("")
 
         base = text_match(self.db, transcript)
-        # The champion's gate: CTC rerank only when the text match scores
-        # below 0.80 (reference: c2c-direct/run.py:66).
-        use_ctc = base is None or float(base.get("score", 0.0)) < FALLBACK_THRESHOLD
+        if self.rerank_mode == "always":
+            use_ctc = True
+        elif self.rerank_mode == "never":
+            use_ctc = False
+        else:
+            use_ctc = base is None or float(base.get("score", 0.0)) < FALLBACK_THRESHOLD
         # The expensive retrieval passes only run when the rerank will
         # consume them (the gate depends on the pass-1 score alone).
         candidates = (
             build_candidates(self.db, transcript, base=base)[0] if use_ctc else []
         )
+        t2 = time.perf_counter()
         if not candidates and not base:
             return _empty(transcript)
         ranked = (
-            ctc_rerank(log_probs, t_valid, candidates, self.token_store,
-                       blank_id=self.runtime.blank_id)
+            ctc_rerank(self._on_device(log_probs, t_valid), t_valid, candidates,
+                       self.token_store, blank_id=self.runtime.blank_id)
             if use_ctc
             else []
         )
+        t3 = time.perf_counter()
+        if self.profile:
+            self.last_profile.update(decode=t1 - t0, build=t2 - t1, rerank=t3 - t2)
 
         if use_ctc and ranked:
             best = ranked[0]
@@ -133,14 +195,28 @@ class Recognizer:
         }
 
     def predict_audio(self, audio: np.ndarray) -> dict:
-        lp, ids, t_valid = self.runtime.forward(audio)
-        result = self._predict_from_logprobs(lp, t_valid, self.decode_ids(ids))
+        t0 = time.perf_counter()
+        device_path = hasattr(self.runtime, "forward")
+        if device_path:
+            # Only the argmax ids cross to the host; the log-probs stay on
+            # the device for the rerank.
+            lp, ids, t_valid = self.runtime.forward(audio)
+            transcript = self.decode_ids(ids)
+        else:
+            lp, t_valid = self.runtime.log_probs(audio)
+            transcript = None
+        if self.profile:
+            self.last_profile = {"forward": time.perf_counter() - t0}
+        result = self._predict_from_logprobs(lp, t_valid, transcript)
         if not self.tta or result["score"] >= TTA_SKIP_THRESHOLD:
+            if self.profile:
+                self.last_profile["audio_s"] = len(audio) / 16000.0
             return result
 
+        t_tta = time.perf_counter()
         # Hard sample: the 0.9x/1.1x perturbed passes.
         perturbed = [speed_perturb(audio, f) for f in TTA_FACTORS]
-        if max(len(p) for p in perturbed) > LONG_THRESHOLD:
+        if device_path and max(len(p) for p in perturbed) > LONG_THRESHOLD:
             # Long clip: per-variant forwards on the [1, bucket] shape.
             preds = []
             for p in perturbed:
@@ -148,7 +224,7 @@ class Recognizer:
                 preds.append(
                     self._predict_from_logprobs(lp_p, tv_p, self.decode_ids(ids_p))
                 )
-        else:
+        elif device_path:
             lps, t_valids, ids_b = self.runtime.forward_batch(perturbed)
             preds = [
                 self._predict_from_logprobs(
@@ -157,6 +233,15 @@ class Recognizer:
                 )
                 for i in range(len(perturbed))
             ]
+        else:
+            lps, t_valids = self.runtime.log_probs_batch(perturbed)
+            preds = [
+                self._predict_from_logprobs(lps[i], int(t_valids[i]))
+                for i in range(len(perturbed))
+            ]
+        if self.profile:
+            self.last_profile["tta"] = time.perf_counter() - t_tta
+            self.last_profile["audio_s"] = len(audio) / 16000.0
         return self.tta_vote([preds[0], result, preds[1]])  # 0.9x, 1.0x, 1.1x
 
     @staticmethod

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from tilawa_tpu_torch.data.assets import BLANK_ID
-from tilawa_tpu_torch.device import resolve_device
+from tilawa_tpu_torch.device import resolve_device, upload
 from tilawa_tpu_torch.models.convert import load_into
 from tilawa_tpu_torch.models.fastconformer import FastConformerConfig, FastConformerCTC
 from tilawa_tpu_torch.ops.ctc import FRAME_BUCKETS, _next_bucket
@@ -135,26 +135,25 @@ class EncoderRuntime:
         for i, a in enumerate(audios):
             batch[i, : len(a)] = a
             lengths[i] = len(a)
-        lp, enc_lens = self._apply(
-            torch.from_numpy(batch).to(self.device),
-            torch.from_numpy(lengths).to(self.device),
-        )
+        lp, enc_lens = self._apply(upload(batch, self.device), upload(lengths, self.device))
         return lp.cpu().numpy(), enc_lens.cpu().numpy()
 
     def _apply_upload(self, pieces: list[np.ndarray], n_pad: int, rows: int):
         """Forward of `pieces` in a [rows, n_pad] batch (zero rows past the
         pieces), uploaded as int16 PCM and rescaled to f32 on the device, or
-        as f32 audio when the int16 upload is off."""
+        as f32 audio when the int16 upload is off. Both uploads are queued
+        without a host sync (device.upload), so the forward is only queued
+        when this returns."""
         dtype = np.int16 if self.int16_upload else np.float32
         batch = np.zeros((rows, n_pad), dtype=dtype)
         lengths = np.zeros(rows, dtype=np.int32)
         for i, a in enumerate(pieces):
             batch[i, : len(a)] = _pcm16(a) if self.int16_upload else a
             lengths[i] = len(a)
-        audio = torch.from_numpy(batch).to(self.device)
+        audio = upload(batch, self.device)
         if self.int16_upload:
             audio = audio.to(torch.float32) / 32768.0
-        return self._apply(audio, torch.from_numpy(lengths).to(self.device))
+        return self._apply(audio, upload(lengths, self.device))
 
     @staticmethod
     def chunk_count(n_samples: int) -> int:
@@ -181,7 +180,7 @@ class EncoderRuntime:
 
     @torch.inference_mode()
     def forward_batch_async(self, audios: list[np.ndarray]):
-        """Queue a batched forward without synchronizing: returns
+        """Queue a batched forward without a host sync: returns
         (lp [B, T_bucket, V] on the device, packed [B, 1 + T_bucket] int32
         on the device, column 0 the encoder frame counts, the rest the
         per-frame argmax ids)."""
