@@ -14,9 +14,11 @@ without the final line):
                  as the paths launch them (bf16 out, bias fused) and the
                  TPU kernels' f32 functions, with rows bitwise independent
                  of M (int4 also at the batched eval's M = 8·T, up to
-                 6400, with per-forward sums at each bucket), and the
-                 log-mel at every (B, N) the paths launch (B=8 at every
-                 bucket of the batched eval), its frames bitwise
+                 6400, and at the distillation teacher's B·T of each of
+                 its buckets, with per-forward sums at each bucket), and
+                 the log-mel at every (B, N) the paths launch (B=8 at every
+                 bucket of the batched eval, every training bucket), its
+                 frames bitwise
                  independent of B and of their offset; timings of the
                  kernel, the plain version and a one-call library yardstick
   4. main path   champion-int4 Recognizer(tta=True).predict over wav clips
@@ -66,10 +68,38 @@ without the final line):
                  each at sequence accuracy 1.0, per-message latency p50/p90
   13. champion   the trace's two clips' forward and predict once more, in
       again      the process state the phases before leave behind
+  14. train      train.finetune's recipe at full width from the dequantized
+                 champion-int4 over bucketed v1 batches, TRAIN_STEPS steps
+                 (in a temporary directory outside the tree), finetune's
+                 own log_every: per step the bucket, loss, step ms (CUDA
+                 events), audio-s/s, MFU and launches; peak memory; the
+                 synchronizing calls a step (set_sync_debug_mode "warn");
+                 finite losses, nothing moved by step 0 (lr 0), parameters
+                 moved by step 1, frozen BatchNorm stats, one log-mel
+                 launch a step, no int4, no sync from the port's code
+  15. train vs   one step on a fixed v1 batch (dropout 0, no SpecAugment)
+      plain      with the log-mel kernel and with the plain log-mel, f32 and
+                 bf16 compute: |Δ loss| and the largest per-leaf
+                 max|Δg|/max|g|, in f32 gated by the same deltas of the
+                 plain step with ±MEL_TOL noise on its log-mel (bf16
+                 printed); then one bf16 step under torch.profiler
+  16. distill    train_distill: student the dequantized champion, teacher
+                 champion-int4 on the int4 kernel, DISTILL_STEPS steps over
+                 distill_batches(v1): KL, auxiliary CTC, step ms, syncs as
+                 in "train"; 189 int4 launches a step (the teacher) and 2
+                 log-mel; before it, the KL of teacher and student on the
+                 first batch's full clips, within SAME_WEIGHTS_KL
+  17. export     export_bundle of the train phase's checkpoint as int4:
+                 verify_bundle, the server's sha256 check, and
+                 Recognizer(tta=True) on the 8 clips at 1.0 with 189 int4
+                 launches a forward
 
-The last three lines: nvidia-smi's name and power limit, one JSON object
-with every kernel's numbers (`launches`: the eval phase's run), and
-{"ok": true, "device": {...}}.
+The last four lines: one JSON object {"train": {...}} (step ms, audio-s/s,
+peak bytes, training MFU, distill step ms, the kernel-vs-plain deltas, the
+card and its power limit), nvidia-smi's name and power limit, one JSON
+object with every kernel's numbers (`launches`: the eval phase's run;
+`train_launches`: the train phase's log-mel and the distill teacher's
+int4), and {"ok": true, "device": {...}}.
 Imports nothing of JAX, flax, msgpack or tilawa_tpu.
 """
 
@@ -83,6 +113,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from contextlib import contextmanager
@@ -112,6 +143,16 @@ MIN_EVAL_CLIPS = 37
 JAX_RECORDED_RUN = ROOT / "benchmark" / "results" / "2026-08-21_095830.json"
 BENCH_BUDGET_S = 300
 WS_CLIENTS = 2
+CHAMPION = ROOT / "exports" / "champion-int4"
+TRAIN_STEPS = 6        # train.finetune's recipe, steps at lr 0 .. 5·3e-5/100
+DISTILL_STEPS = 4
+GRAD_FLOOR = 1e-3      # train vs plain: leaves under this share of the largest gradient
+                       # hold rounding noise and are not compared
+SAME_WEIGHTS_KL = 1e-3  # KL(teacher || student) per valid frame on full clips when both
+                        # hold the champion's weights (int4 kernel vs the dequantized bf16
+                        # matmuls: same operands, f32 sums in other orders, bf16 roundings
+                        # flipped through 17 blocks): 2.9e-5 read on an H100 (PERF.md), the
+                        # bound ~35x that; dropout 0.1 on the student alone gives ~1.4
 # step 0: two B=8 forwards at NO_SYNC_BUCKET make no synchronizing call;
 # behind a device sleep of NO_SYNC_SLEEP_S (torch.cuda._sleep counts SM
 # cycles, ~1.98e9 a second on an H100 SXM at full clock) the host reaches
@@ -152,6 +193,15 @@ MEL_SHAPES = ((1, 64000), (1, 128000), (1, 256000), (1, 512000), (2, 64000),
               (8, 64000), (8, 128000), (8, 512000), (8, 1024000))   # the batched eval's
 MEL_OFFSETS = (1, 2, 3, 5, 97)   # frame offsets for the bitwise shift check
 
+
+def mel_shapes() -> tuple[tuple[int, int], ...]:
+    """MEL_SHAPES and the (B, N) of every train.data.BUCKETS batch: the
+    training forwards, and distillation's teacher and student (its buckets
+    are those up to train.distill.MAX_BUCKET_S)."""
+    from tilawa_tpu_torch.train.data import BUCKETS
+
+    return tuple(dict.fromkeys((*MEL_SHAPES, *((bs, int(sec * 16000)) for sec, bs in BUCKETS))))
+
 # The champion's int4 products per forward, (K, N, launches), at M encoder
 # rows (pos runs over the 2T-1 relative positions).
 INT4_SHAPES = (
@@ -190,9 +240,26 @@ def batched_m(name: str, t: int) -> int:
     return 2 * t - 1 if name == "pos" else BATCH * t
 
 
+def distill_ms(name: str) -> tuple[int, ...]:
+    """The rows M a product runs at in the distillation teacher's forward
+    of each distill bucket's batch: B·T (pos at 2T-1)."""
+    from tilawa_tpu_torch.train.data import BUCKETS
+    from tilawa_tpu_torch.train.distill import MAX_BUCKET_S
+    from tilawa_tpu_torch.train.train import encoder_lengths
+
+    out = []
+    for sec, bs in BUCKETS:
+        if sec <= MAX_BUCKET_S:
+            t = int(encoder_lengths([int(sec * 16000)])[0])
+            out.append(2 * t - 1 if name == "pos" else bs * t)
+    return tuple(out)
+
+
 def int4_ms(name: str) -> tuple[int, ...]:
-    """Every M the champion's products run at: per clip and batched."""
-    return tuple(sorted(set(path_ms(name)) | {batched_m(name, t) for t in BATCH_T}))
+    """Every M the champion's products run at: per clip, batched and in
+    the distillation teacher."""
+    return tuple(sorted(set(path_ms(name)) | {batched_m(name, t) for t in BATCH_T}
+                        | set(distill_ms(name))))
 
 
 class PhaseFailed(Exception):
@@ -405,6 +472,15 @@ def check_int4(torch, np, quant, flush) -> dict:
               f"{INT4_LAUNCHES_PER_FORWARD} launches): " + ", ".join(
                   f"{k} {v:.4f}" for k, v in per.items())
               + f"; kernel/library {per['ms'] / per['library_ms']:.3f}", flush=True)
+    teacher = []
+    ms_of = {name: distill_ms(name) for name, *_ in INT4_SHAPES}
+    for j, m in enumerate(ms_of["proj"]):
+        per = {key: sum(count * layer_rows[(name, ms_of[name][j])][key]
+                        for name, _k, _n, count in INT4_SHAPES) for key in keys}
+        teacher.append({"m": m, **per})
+        print(f"  int4 (layer) per distillation teacher forward M={m} (pos M={ms_of['pos'][j]}, "
+              f"{INT4_LAUNCHES_PER_FORWARD} launches): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     return {
         "name": "int4_matmul", "route": "cuda",
         "source": "tilawa_tpu_torch/csrc/quant_matmul.cuh",
@@ -414,7 +490,8 @@ def check_int4(torch, np, quant, flush) -> dict:
         "f32_out_max_abs_err": max_err["f32"],
         **{f"f32_out_{k}": v for k, v in totals["f32"].items()},
         "flip_rate": flips / elems,
-        "batched_per_forward": batched, "shapes": list(layer_rows.values()),
+        "batched_per_forward": batched, "teacher_per_forward": teacher,
+        "shapes": list(layer_rows.values()),
     }
 
 
@@ -569,7 +646,7 @@ def check_log_mel(torch, np, frontend, flush) -> dict:
     window = tables.window
     fb_nonzeros = int((tables.fb != 0).sum())
     rows = {}
-    for b, n in MEL_SHAPES:
+    for b, n in mel_shapes():
         audio = torch.from_numpy((rng.standard_normal((b, n)) * 0.1).astype(np.float32)).to(dev)
         pre = preemphasize(torch, frontend, audio)
         out = frontend.fused_log_mel(pre, tables)
@@ -1197,6 +1274,479 @@ def trace(torch, runtime, recognizer, clips, reps: int = 12) -> None:
         check_profile(device_busy(torch, runtime, audio, fwd_ms, top=8), name)
 
 
+# ---------------------------------------------------------------------------
+# The training path (train.finetune's recipe, distillation, export)
+
+
+def _bn_stats(model) -> dict:
+    return {n: b.detach().clone() for n, b in model.named_buffers()
+            if n.endswith((".mean", ".var"))}
+
+
+@contextmanager
+def sync_census(torch):
+    """Every synchronizing CUDA call made inside, as a Python warning
+    (torch.cuda.set_sync_debug_mode("warn"), which acts only at such a
+    call) whose file and line are those of the innermost Python frame: the
+    library or port function that made it."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def sync_sites(seen: list, lo: int, hi: int) -> dict[str, int]:
+    """The synchronizing calls among seen[lo:hi], counted by file:line."""
+    sites: dict[str, int] = {}
+    for w in seen[lo:hi]:
+        if "synchronizing" in str(w.message):
+            path = Path(w.filename).as_posix()
+            for root in ("site-packages/", "tilawa_tpu_torch/"):
+                if root in path:
+                    path = (root if root.startswith("tilawa") else "") + path.split(root, 1)[1]
+                    break
+            key = f"{path}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def timed_steps(steps: list[dict], start) -> None:
+    """Each step's ms from the CUDA events its callback recorded: from the
+    previous step's `resume` (after the callback's own device work) to the
+    step's `end`."""
+    prev = start
+    for s in steps:
+        s["ms"] = prev.elapsed_time(s["end"])
+        prev = s["resume"]
+
+
+def check_syncs(steps: list[dict], seen: list, first: int, what: str) -> dict[str, int]:
+    """Sync sites per step from `first` on (the steps before it hold the
+    loss read logged at step 0 and the first step's lazy set-up): printed;
+    a synchronizing call from the port's own code fails."""
+    per_step = [sync_sites(seen, a["warnings"], b["warnings"])
+                for a, b in zip(steps[first - 1:], steps[first:])]
+    sites: dict[str, int] = {}
+    for d in per_step:
+        for k, v in d.items():
+            sites[k] = sites.get(k, 0) + v
+    print(f"  synchronizing calls in {what} steps {first}..{len(steps) - 1}: "
+          f"{[sum(d.values()) for d in per_step]} a step, at {sites or 'none'}", flush=True)
+    ours = [k for k in sites if k.startswith("tilawa_tpu_torch/")]
+    if ours:
+        raise AssertionError(f"{what}: the port's own code synchronizes in a step at {ours}")
+    return sites
+
+
+def train_phase(torch, np, kernels, ckpt_dir: Path) -> dict:
+    """train.finetune's recipe at full width from the dequantized
+    champion-int4 over bucketed v1 batches (crop_prob 0.35), TRAIN_STEPS
+    steps, with finetune's own log_every (the loss is read at step 0 and at
+    the last step). Per step: bucket, loss, step ms (CUDA events: from the
+    end of the callback's work after the previous step to the end of this
+    one: the device's work for the step and any wait for the host), audio-s/s
+    over the batch's valid samples, launches. The callback compares the
+    parameters with the champion's on the device after steps 0 and 1 (one
+    flag a parameter, no host sync) and records
+    its events around that work; they are read after the run. The steps
+    run under sync_census. Asserts finite losses, no parameter moved by step
+    0 (lr 0), parameters moved by step 1, frozen BatchNorm stats, one log-mel
+    launch a step and no int4 launch, no synchronizing call of the port's
+    own code in steps 2.."""
+    from tilawa_tpu_torch.models.convert import params_from_jax
+    from tilawa_tpu_torch.models.fastconformer import forward_flops
+    from tilawa_tpu_torch.train.checkpoint import load_variables
+    from tilawa_tpu_torch.train.finetune import finetune
+    from tilawa_tpu_torch.train.quantize import dequantize_variables
+
+    _cfg, variables = load_variables(CHAMPION)
+    ref = {k: v.to(DEVICE) for k, v in params_from_jax(dequantize_variables(variables)).items()}
+    steps: list[dict] = []
+    names = list(ref)
+    moved: dict[int, object] = {}
+    state_of: dict = {}
+    start = torch.cuda.Event(enable_timing=True)
+
+    def callback(i, state, batch, loss):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        if i in (0, 1):   # step 0 moves nothing, so "differs" after step 1 is step 1's move
+            params = dict(state.model.named_parameters())
+            moved[i] = torch.stack([torch.ne(params[n].detach(), ref[n]).any() for n in names
+                                    if n in params])
+        resume = torch.cuda.Event(enable_timing=True)
+        resume.record()
+        steps.append({"i": i, "shape": batch[0].shape, "samples": int(batch[1].sum()),
+                      "loss": loss, "end": end, "resume": resume, "launches": launches,
+                      "warnings": len(seen)})
+        state_of["model"] = state.model
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with sync_census(torch) as seen:
+        start.record()
+        finetune(init=CHAMPION, checkpoint_dir=ckpt_dir, steps=TRAIN_STEPS, corpora=("v1",),
+                 seed=SEED, crop_prob=0.35, device=DEVICE,
+                 checkpoint_every=TRAIN_STEPS + 1, callback=callback)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    model = state_of["model"]
+    cfg = model.cfg
+    timed_steps(steps, start)
+    for s in steps:
+        b, n = s["shape"]
+        s["audio_s_s"] = s["samples"] / 16000 / (s["ms"] / 1e3)
+        s["mfu"] = 3 * b * forward_flops(cfg, n / 16000) / (s["ms"] / 1e3) / BF16_FLOPS_S
+        print(f"  step {s['i']}: {b} x {n / 16000:g} s, loss {float(s['loss']):.4f}, "
+              f"{s['ms']:.2f} ms, {s['audio_s_s']:.1f} audio-s/s, MFU {s['mfu']:.4f}, "
+              f"launches {s['launches']}", flush=True)
+    syncs = check_syncs(steps, seen, 2, "train")
+    params = [n for n in names if n in dict(model.named_parameters())]
+    step0_moved = [n for n, f in zip(params, moved[0].tolist()) if f]
+    step1_moved = sum(moved[1].tolist())
+    print(f"  peak memory {peak} B; step 0 moved {len(step0_moved)} parameters, "
+          f"step 1 moved {step1_moved} of {len(params)}", flush=True)
+    bn_ref = {n: v for n, v in ref.items() if n.endswith((".mean", ".var"))}
+    bn_moved = [n for n, b in _bn_stats(model).items() if not torch.equal(b, bn_ref[n])]
+    if not all(np.isfinite(float(s["loss"])) for s in steps):
+        raise AssertionError("a training loss is not finite")
+    if step0_moved:
+        raise AssertionError(f"step 0 (lr 0) moved {step0_moved[:5]}")
+    if not step1_moved:
+        raise AssertionError("step 1 moved no parameter")
+    if bn_moved:
+        raise AssertionError(f"frozen BatchNorm stats moved: {bn_moved[:5]}")
+    bad = [s["i"] for s in steps if s["launches"]["log_mel"] != 1 or s["launches"]["int4_matmul"]]
+    if bad:
+        raise AssertionError(f"steps {bad}: want 1 log-mel and 0 int4 launches a step")
+    timed = steps[1:]
+    med = sorted(timed, key=lambda s: s["ms"])[len(timed) // 2]
+    return {"checkpoint": ckpt_dir / f"step_{TRAIN_STEPS:06d}", "peak_bytes": peak,
+            "step_ms": med["ms"], "bucket": f"{med['shape'][0]}x{med['shape'][1] / 16000:g}s",
+            "step_ms_by_bucket": {f"{s['shape'][0]}x{s['shape'][1] / 16000:g}s": [
+                t["ms"] for t in timed if t["shape"] == s["shape"]] for s in timed},
+            "audio_s_s": sum(s["samples"] for s in timed) / 16000
+            / (sum(s["ms"] for s in timed) / 1e3),
+            "mfu": sum(3 * s["shape"][0] * forward_flops(cfg, s["shape"][1] / 16000)
+                       for s in timed) / (sum(s["ms"] for s in timed) / 1e3) / BF16_FLOPS_S,
+            "sync_sites": syncs,
+            "log_mel_launches": sum(s["launches"]["log_mel"] for s in steps)}
+
+
+def _step_loss(torch, model, batch, generator):
+    """One training step's forward, CTC loss and backward (frozen BatchNorm,
+    the model's own dropout and SpecAugment), no update; the loss."""
+    from tilawa_tpu_torch.device import upload
+    from tilawa_tpu_torch.train.train import ctc_loss_fn, encoder_lengths
+
+    audio, lens, tokens, tlens = batch
+    model.zero_grad(set_to_none=True)
+    lp, _ = model(upload(audio, model.mel_window.device), upload(lens, model.mel_window.device),
+                  deterministic=False, use_running_average=True, generator=generator)
+    loss = ctc_loss_fn(lp, encoder_lengths(lens), tokens, tlens, model.cfg.blank_id)
+    loss.backward()
+    return loss.detach()
+
+
+def _one_step(torch, model, batch, generator):
+    """Loss and gradients of one training step before any update."""
+    loss = _step_loss(torch, model, batch, generator)
+    return float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _step_delta(a, b) -> tuple[float, float, str]:
+    """|Δ loss| and the largest per-leaf max|Δg|/max|g| (leaves whose
+    gradient is at least GRAD_FLOOR of the whole gradient's largest; below
+    it a leaf holds rounding noise, as the key bias does: zero in exact
+    arithmetic under the softmax's shift invariance)."""
+    (la, ga), (lb, gb) = a, b
+    top = max(float(g.abs().max()) for g in ga.values())
+    worst, where = 0.0, ""
+    for n, g in ga.items():
+        m = float(g.abs().max())
+        if m >= GRAD_FLOOR * top:
+            r = float((g - gb[n]).abs().max()) / m
+            if r > worst:
+                worst, where = r, n
+    return abs(la - lb), worst, where
+
+
+def noisy_features(torch, frontend, model, noise) -> None:
+    """Hooks on `model` that give its subsampling the plain log-mel of the
+    forward's audio plus uniform noise of ±MEL_TOL (drawn from `noise`),
+    normalized as log_mel_spectrogram does: the kernel's error bound, put
+    where the kernel's output goes. Without the noise the hooks must give
+    back bit for bit the features the model computed (checked each call)."""
+    given = {}
+
+    def keep(_module, args):
+        given["audio"], given["lengths"] = args[0], args[1]
+
+    def replace(_module, args):
+        feats, lengths = args
+        logmel = frontend.log_mel_plain(preemphasize(torch, frontend, given["audio"]),
+                                        model.tables())
+        clean, _ = frontend.normalize_log_mel(logmel, given["lengths"])
+        if not torch.equal(bits(torch, clean), bits(torch, feats)):
+            raise AssertionError("noisy_features: the plain features differ from the model's")
+        drawn = (torch.rand(logmel.shape, generator=noise, device=logmel.device) * 2 - 1) * MEL_TOL
+        return frontend.normalize_log_mel(logmel + drawn, given["lengths"])[0], lengths
+
+    model.register_forward_pre_hook(keep)
+    model.subsampling.register_forward_pre_hook(replace)
+
+
+def train_vs_plain(torch, np) -> dict:
+    """One step on one fixed v1 batch from the dequantized champion, dropout
+    0 and SpecAugment off, with the log-mel kernel and with the plain
+    log-mel, in f32 and in bf16 compute. Tolerance, measured in the same
+    run: the deltas of the same step with the plain log-mel plus uniform
+    noise of ±MEL_TOL, the bound the kernel is held to against its plain
+    version — the kernel's |Δ loss| and per-leaf gradient delta must not
+    exceed what an error of the kernel's own bound does to the step. Gated
+    in f32, where the step is smooth in its features; in bf16 any change of
+    the features flips roundings through the 17 blocks, so kernel and noise
+    deltas come out alike whatever the size of the change: printed, not
+    gated. The plain step run twice gives the floor (CTC's backward on CUDA
+    may use atomics). The noisy run's features come from hooks on its own
+    model (noisy_features): the plain log-mel of its audio plus the noise,
+    then the frontend's normalization. Then one bf16 kernel step under
+    torch.profiler."""
+    from tilawa_tpu_torch.models.convert import load_into
+    from tilawa_tpu_torch.models.fastconformer import FastConformerCTC
+    from tilawa_tpu_torch.ops import frontend
+    from tilawa_tpu_torch.train.checkpoint import load_variables
+    from tilawa_tpu_torch.train.data import bucketed_corpus_batches
+    from tilawa_tpu_torch.train.quantize import dequantize_variables, dequantized_config
+    from tilawa_tpu_torch.train.train import step_generator
+
+    cfg, variables = load_variables(CHAMPION)
+    variables = dequantize_variables(variables)
+    batch = next(bucketed_corpus_batches(("v1",), seed=SEED + 1, augment=False))
+    gen = lambda: step_generator(SEED, 1, torch.device(DEVICE))  # noqa: E731
+    noise = torch.Generator(device=DEVICE)
+
+    def model_for(dtype, use_pallas):
+        c = dequantized_config(cfg, dtype=dtype, use_pallas=use_pallas, dropout=0.0,
+                               sa_freq_masks=0, sa_time_masks=0)
+        return load_into(FastConformerCTC(c), variables).to(DEVICE)
+
+    print(f"  batch {batch[0].shape[0]} x {batch[0].shape[1] / 16000:g} s", flush=True)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = {}
+        noise.manual_seed(SEED)
+        for name, use_pallas in (("kernel", True), ("plain", False), ("plain again", False),
+                                 ("plain + noise", False)):
+            model = model_for(dtype, use_pallas)
+            if name == "plain + noise":
+                noisy_features(torch, frontend, model, noise)
+            runs[name] = _one_step(torch, model, batch, gen())
+            del model
+        kernel = _step_delta(runs["kernel"], runs["plain"])
+        floor = _step_delta(runs["plain again"], runs["plain"])
+        tol = _step_delta(runs["plain + noise"], runs["plain"])
+        tag = str(dtype).removeprefix("torch.")
+        print(f"  {tag}: loss {runs['plain'][0]:.5f}", flush=True)
+        for what, (dl, dg, where) in (("kernel vs plain", kernel), ("plain vs plain", floor),
+                                      (f"plain + ±{MEL_TOL} log-mel noise vs plain", tol)):
+            print(f"    {what}: |Δ loss| {dl:.4g}, largest per-leaf max|Δg|/max|g| {dg:.4g} "
+                  f"({where})", flush=True)
+        out[tag] = {"d_loss": kernel[0], "d_grad": kernel[1], "tol_loss": tol[0],
+                    "tol_grad": tol[1], "floor_loss": floor[0], "floor_grad": floor[1]}
+    f32 = out["float32"]
+    if not (f32["d_loss"] <= f32["tol_loss"] and f32["d_grad"] <= f32["tol_grad"]):
+        raise AssertionError(f"f32 kernel vs plain step {f32} beyond the tolerance")
+    out["profile"] = _profile_step(torch, model_for(torch.bfloat16, True), batch, gen)
+    return out
+
+
+def _profile_step(torch, model, batch, gen) -> dict:
+    """One bf16 training step with the kernels (forward, CTC, backward)
+    under torch.profiler after a warm-up: device busy time against the
+    step's host wall time, and the kernels that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _step_loss(torch, model, batch, gen())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _step_loss(torch, model, batch, gen())
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _step_loss(torch, model, batch, gen())
+        torch.cuda.synchronize()
+    stats = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy = sum(device_us(e) for e in stats) / 1e3
+    launches = sum(e.count for e in stats if device_us(e) > 0 and not e.key.startswith("aten::"))
+    print(f"  profiled bf16 step (forward, CTC, backward; no optimizer): host wall {wall:.2f} ms, "
+          f"device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)", flush=True)
+    for e in sorted(stats, key=device_us, reverse=True)[:8]:
+        print(f"    {device_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}", flush=True)
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_kernel_events": launches}
+
+
+def distill_phase(torch, np, kernels) -> dict:
+    """distill.train_distill: student the dequantized champion, teacher
+    champion-int4 on the int4 kernel, distill_batches over v1, DISTILL_STEPS
+    steps, with its own log_every (the losses are read at step 0 and at the
+    last step), step ms as in train_phase, under sync_census. Asserts the
+    same-weights KL on the first batch's full clips within SAME_WEIGHTS_KL,
+    INT4_LAUNCHES_PER_FORWARD int4 launches a step (one teacher forward),
+    two log-mel launches (teacher and student), finite losses, and no
+    synchronizing call of the port's own code in steps 2.."""
+    from tilawa_tpu_torch.device import upload
+    from tilawa_tpu_torch.models.convert import load_into
+    from tilawa_tpu_torch.models.fastconformer import FastConformerCTC
+    from tilawa_tpu_torch.train.checkpoint import load_variables
+    from tilawa_tpu_torch.train.distill import distill_batches, load_teacher, train_distill
+    from tilawa_tpu_torch.train.quantize import dequantize_variables, dequantized_config
+
+    # the same weights on the same full clips: teacher (int4 kernel) against
+    # the dequantized student, both deterministic, over the first batch
+    cfg, variables = load_variables(CHAMPION)
+    student = load_into(FastConformerCTC(dequantized_config(cfg)),
+                        dequantize_variables(variables)).to(DEVICE)
+    teacher = load_teacher(CHAMPION, DEVICE)
+    first = next(distill_batches(corpora=("v1",), seed=SEED))
+    with torch.no_grad():
+        audio, lens = upload(first[0], torch.device(DEVICE)), upload(first[1], torch.device(DEVICE))
+        t_lp, t_len = teacher(audio, lens)
+        s_lp, _ = student(audio, lens)
+        mask = (torch.arange(t_lp.shape[1], device=DEVICE)[None, :] < t_len[:, None]).float()
+        kl = torch.sum(torch.exp(t_lp) * (t_lp - s_lp), dim=-1)
+        full_kl = float(torch.sum(kl * mask) / torch.sum(mask))
+    del student, teacher
+    print(f"  KL(teacher || student) on the first batch's full clips, no crop, no dropout: "
+          f"{full_kl:.3g} (bound {SAME_WEIGHTS_KL})", flush=True)
+    if not full_kl <= SAME_WEIGHTS_KL:
+        raise AssertionError(f"the int4 teacher and the dequantized student disagree: KL "
+                             f"{full_kl} > {SAME_WEIGHTS_KL}")
+
+    steps = []
+    start = torch.cuda.Event(enable_timing=True)
+
+    def callback(i, state, batch, out):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        steps.append({"i": i, "shape": batch[0].shape, "out": out, "end": end, "resume": end,
+                      "launches": dict(kernels.LAUNCHES), "warnings": len(seen)})
+        kernels.reset_launches()
+
+    kernels.reset_launches()
+    with sync_census(torch) as seen:
+        start.record()
+        train_distill(CHAMPION, CHAMPION, distill_batches(corpora=("v1",), seed=SEED),
+                      DISTILL_STEPS, seed=SEED, device=DEVICE, callback=callback)
+        torch.cuda.synchronize()
+    timed_steps(steps, start)
+    for s in steps:
+        loss, kl, ctc = (float(v) for v in s["out"])
+        print(f"  step {s['i']}: {s['shape'][0]} x {s['shape'][1] / 16000:g} s, KL {kl:.5f}, "
+              f"aux CTC {ctc:.4f}, loss {loss:.4f}, {s['ms']:.2f} ms, launches "
+              f"{s['launches']}", flush=True)
+    bad = [s["i"] for s in steps if s["launches"]["int4_matmul"] != INT4_LAUNCHES_PER_FORWARD
+           or s["launches"]["log_mel"] != 2]
+    if bad:
+        raise AssertionError(f"steps {bad}: want {INT4_LAUNCHES_PER_FORWARD} int4 launches "
+                             "(the teacher) and 2 log-mel launches a step")
+    if not all(np.isfinite([float(v) for v in s["out"]]).all() for s in steps):
+        raise AssertionError("a distillation loss is not finite")
+    syncs = check_syncs(steps, seen, 2, "distill")
+    timed = steps[1:]
+    return {"step_ms": sorted(s["ms"] for s in timed)[len(timed) // 2],
+            "step_ms_all": [s["ms"] for s in timed], "sync_sites": syncs,
+            "first_kl": float(steps[0]["out"][1]), "first_kl_full_rows": full_kl,
+            "int4_launches": sum(s["launches"]["int4_matmul"] for s in steps),
+            "log_mel_launches": sum(s["launches"]["log_mel"] for s in steps)}
+
+
+def export_phase(torch, kernels, checkpoint: Path, out: Path, manifest: dict) -> None:
+    """export.export_bundle of the train phase's checkpoint as int4:
+    verify_bundle true for every file, the server's sha256 check accepts
+    it, and Recognizer(tta=True) on it gets every CLIPS clip right with
+    INT4_LAUNCHES_PER_FORWARD int4 launches a forward."""
+    from tilawa_tpu_torch.eval.experiments import load_runtime
+    from tilawa_tpu_torch.eval.metrics import best_emission_score, predict_to_emissions
+    from tilawa_tpu_torch.io.bundle import read_variables
+    from tilawa_tpu_torch.pipeline.predict import Recognizer
+    from tilawa_tpu_torch.streaming.server import ModelLoader
+    from tilawa_tpu_torch.train.export import export_bundle, verify_bundle
+
+    export_bundle(checkpoint, out, quant="int4")
+    verified = verify_bundle(out)
+    print(f"  verify_bundle: {verified}", flush=True)
+    if not all(verified.values()):
+        raise AssertionError(f"verify_bundle failed: {verified}")
+    champion = read_variables(CHAMPION)
+    mine = read_variables(out)
+    differ = [k for k, a in _flat_leaves(champion) if not (
+        a.shape == _get(mine, k).shape and (a == _get(mine, k)).all())]
+    print(f"  {len(differ)} of {sum(1 for _ in _flat_leaves(champion))} leaves differ from "
+          f"champion-int4 after {TRAIN_STEPS} steps", flush=True)
+    previous = os.environ.get("TILAWA_CHECKPOINT")
+    os.environ["TILAWA_CHECKPOINT"] = str(out)
+    try:
+        loader = ModelLoader(warmup=False, device=DEVICE)
+        loader._load()
+    finally:
+        if previous is None:
+            os.environ.pop("TILAWA_CHECKPOINT")
+        else:
+            os.environ["TILAWA_CHECKPOINT"] = previous
+    print(f"  server loader: {loader.state['phase']}", flush=True)
+    if loader.state["phase"] != "ready":
+        raise AssertionError(f"the server refused the bundle: {loader.state}")
+    del loader
+    runtime = load_runtime(out, DEVICE, long_chunking=False)
+    recognizer = Recognizer(runtime, tta=True)
+    kernels.reset_launches()
+    runtime.forwards = 0
+    wrong = []
+    for clip in CLIPS:
+        pred = recognizer.predict(CORPUS / clip)
+        sample = manifest[clip]
+        acc = best_emission_score(sample["expected_verses"], predict_to_emissions(pred),
+                                  sample.get("also_accept"))["sequence_accuracy"]
+        print(f"  {clip:24s} -> {pred['surah']}:{pred['ayah']}-{pred['ayah_end']} "
+              f"{'ok' if acc == 1.0 else 'WRONG'}", flush=True)
+        if acc != 1.0:
+            wrong.append(clip)
+    torch.cuda.synchronize()
+    launches, forwards = dict(kernels.LAUNCHES), runtime.forwards
+    print(f"  forwards {forwards}; launches {launches}", flush=True)
+    if wrong:
+        raise AssertionError(f"the exported bundle got {wrong} wrong")
+    if not forwards or launches["int4_matmul"] != INT4_LAUNCHES_PER_FORWARD * forwards:
+        raise AssertionError("the exported bundle did not run 189 int4 launches a forward")
+
+
+def _flat_leaves(tree: dict, prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _get(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def run() -> int:
     import torch
 
@@ -1382,8 +1932,30 @@ def run() -> int:
                   f"forward {sorted(fwd)[3]:.2f} ms, predict {sorted(pred)[3]:.2f} ms",
                   flush=True)
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        with phase("train"):
+            trained = train_phase(torch, np, kernels, Path(tmp) / "finetune")
+            entries[1]["train_launches"] = trained["log_mel_launches"]
+        with phase("train vs plain"):
+            versus = train_vs_plain(torch, np)
+        with phase("distill"):
+            distilled = distill_phase(torch, np, kernels)
+            entries[0]["train_launches"] = distilled["int4_launches"]
+        with phase("export"):
+            export_phase(torch, kernels, trained["checkpoint"], Path(tmp) / "bundle", manifest)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"train": {
+        "step_ms": trained["step_ms"], "bucket": trained["bucket"],
+        "audio_s_per_s": trained["audio_s_s"], "peak_bytes": trained["peak_bytes"],
+        "mfu": trained["mfu"], "step_ms_by_bucket": trained["step_ms_by_bucket"],
+        "sync_sites": trained["sync_sites"], "distill_step_ms": distilled["step_ms"],
+        "distill_step_ms_all": distilled["step_ms_all"],
+        "distill_sync_sites": distilled["sync_sites"],
+        "distill_first_kl": distilled["first_kl"],
+        "distill_first_kl_full_rows": distilled["first_kl_full_rows"], "vs_plain": versus,
+        "device": kind, "nvidia_smi": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: v for k, v in e.items() if k not in keys}}

@@ -20,7 +20,10 @@ add can carry a last-bit flip of the rounded product one output ulp
 further); int4_dense is also bit-equal to the cast and bias add of
 int4_matmul's own f32 output (same body, same sum order). Row invariance:
 bitwise. The streaming cache against forward_long on stream6-int8: 1e-5,
-the reference's contract (tests/test_runtime_long.py)."""
+the reference's contract (tests/test_runtime_long.py). A full-width
+training step (f32 compute) with the log-mel kernel against the plain
+log-mel: within the deltas that ±2e-3 noise on the plain log-mel gives the
+same step (chip_smoke.train_vs_plain)."""
 
 import dataclasses
 import time
@@ -411,3 +414,68 @@ def test_log_mel_kernel_at_the_largest_batched_bucket(cuda):
     assert float((out - ref).abs().max()) <= 2e-3
     alone = frontend.fused_log_mel(pre[5:6].contiguous(), tables)
     assert torch.equal(alone.view(torch.int32), out[5:6].view(torch.int32))
+
+
+def test_training_step_kernel_vs_plain(cuda):
+    """One full-width training step of the dequantized champion (dropout 0,
+    no SpecAugment, f32 compute) with the log-mel kernel and with the plain
+    log-mel: |Δ loss| and the largest per-leaf max|Δg|/max|g| within what
+    ±2e-3 of noise on the plain log-mel (the kernel's bound against its
+    plain version) does to the same step (chip_smoke.train_vs_plain, which
+    also prints the bf16 step)."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    out = chip_smoke.train_vs_plain(torch, np)["float32"]
+    assert out["d_loss"] <= out["tol_loss"] and out["d_grad"] <= out["tol_grad"]
+
+
+def test_teacher_forward_launches_int4(cuda):
+    """The distillation teacher (champion-int4 as stored, under no_grad):
+    189 int4 launches and one log-mel a forward; its output keeps no graph
+    and can be saved for a student's backward (not an inference tensor)."""
+    from tilawa_tpu_torch.io.bundle import EXPORTS_DIR
+    from tilawa_tpu_torch.train.distill import load_teacher
+
+    teacher = load_teacher(EXPORTS_DIR / "champion-int4", cuda)
+    audio = torch.zeros((2, 64000), device=cuda)
+    lens = torch.tensor([64000, 40000], dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    with torch.no_grad():
+        lp, _ = teacher(audio, lens)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0}
+    assert not lp.is_inference() and lp.grad_fn is None
+    student_like = torch.zeros_like(lp, requires_grad=True)
+    (torch.exp(lp) * (lp - student_like)).sum().backward()
+    assert student_like.grad is not None
+
+
+def test_wrappers_raise_on_inputs_that_need_a_gradient(cuda):
+    """On CUDA tensors, as on the CPU: an input that requires a gradient
+    under grad mode raises before any launch; under no_grad the kernel runs."""
+    rng = np.random.default_rng(9)
+    packed, scales = (torch.from_numpy(a).to(cuda) for a in quant.pack_int4(
+        rng.standard_normal((64, 32)).astype(np.float32)))
+    q, s8 = (torch.from_numpy(a).to(cuda) for a in quant.quantize_int8(
+        rng.standard_normal((64, 32)).astype(np.float32)))
+    x = torch.randn(3, 64, device=cuda, requires_grad=True)
+    pre = torch.randn(1, 4000, device=cuda, requires_grad=True)
+    tables = frontend.mel_tables(cuda)
+    calls = [lambda: quant.int4_matmul(x, packed, scales),
+             lambda: quant.int4_dense(x, packed, scales),
+             lambda: quant.int8_matmul(x, q, s8),
+             lambda: quant.int8_dense(x, q, s8),
+             lambda: frontend.fused_log_mel(pre, tables)]
+    kernels.reset_launches()
+    for call in calls:
+        with pytest.raises(RuntimeError, match="forward only"):
+            call()
+    assert sum(kernels.LAUNCHES.values()) == 0
+    with torch.no_grad():
+        for call in calls:
+            assert call().grad_fn is None
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"int4_matmul": 2, "log_mel": 1, "int8_matmul": 2}

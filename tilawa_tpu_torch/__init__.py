@@ -19,7 +19,10 @@ counterpart of `tilawa_tpu/data/quran.py` is `tilawa_tpu_torch/data/quran.py`).
   eval      — experiment registry and runtime loading, the runner, the
               batched corpus eval, metrics, the streaming validation
               replay, the WS endpoint bench
-  train     — post-training int4/mixed quantization of a bundle's tree
+  train     — the training path: CTC fine-tune (train, finetune), the
+              checkpoint reader/writer, data and forced alignment (numpy
+              copies), int4/int8 quantization and its inverse, export with
+              the sha256 contract, self-distillation, the corpus-fit report
   data/text — host code copied from the JAX package
 
 Entry points, on the card unless --device cpu (or device="cpu") is passed:
@@ -29,6 +32,10 @@ Entry points, on the card unless --device cpu (or device="cpu") is passed:
   python -m tilawa_tpu_torch.bench                 the headline JSON line
   python -m tilawa_tpu_torch.streaming.server      the WebSocket server
   python -m tilawa_tpu_torch.eval.ws_bench         replay clips against it
+  python -m tilawa_tpu_torch.train.train           CTC training (small/large preset)
+  python -m tilawa_tpu_torch.train.finetune        the champion fine-tune recipe
+  python -m tilawa_tpu_torch.train.distill         self-distillation from champion-int4
+  python -m tilawa_tpu_torch.train.export          a checkpoint → an int4 bundle
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""Export bundle reader: `config.json` + flax-msgpack `variables.msgpack`.
+"""Export bundle reader and writer: `config.json` + flax-msgpack
+`variables.msgpack`.
 
 Counterpart of tilawa_tpu/train/checkpoint.py (load_variables,
 shipped_checkpoint) without flax or the `msgpack` package: a small
@@ -7,6 +8,14 @@ ints, floats, arrays, nil/bool and ext type 1, flax's ndarray (a nested
 msgpack `(shape, dtype-name, bytes)`, flax.serialization._ndarray_from_bytes).
 Binary payloads are decoded as memoryview slices of the file buffer, so the
 arrays are zero-copy views and a 70 MB bundle decodes in well under a second.
+Maps keep the file's key order.
+
+`packb` encodes the same subset the way msgpack-python does for flax
+(`msgpack.packb(tree, use_bin_type=True)`, ndarrays as ext type 1 holding
+`packb((shape, dtype-name, bytes))`): the smallest encoding of every int,
+floats as float64, str/bin/map/array/ext in their smallest forms, maps in
+the dict's own key order. So `packb(unpackb(b)) == b` for a flax file, and
+the key order of the tree given decides the bytes.
 """
 
 from __future__ import annotations
@@ -138,6 +147,88 @@ def unpackb(data: bytes | bytearray | memoryview):
     if end != len(buf):
         raise MsgpackError(f"{len(buf) - end} trailing bytes after the document")
     return obj
+
+
+# (type byte, length format, largest length) of each length-prefixed form
+_STR = ((0xD9, ">B", 0xFF), (0xDA, ">H", 0xFFFF), (0xDB, ">I", 0xFFFFFFFF))
+_BIN = ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF), (0xC6, ">I", 0xFFFFFFFF))
+_EXT = ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF), (0xC9, ">I", 0xFFFFFFFF))
+_ARRAY = ((0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF))
+_MAP = ((0xDE, ">H", 0xFFFF), (0xDF, ">I", 0xFFFFFFFF))
+
+
+def _header(n: int, forms: tuple, fix: int | None = None, fix_max: int = -1) -> bytes:
+    """The smallest length header: the fix form when n fits it, else the
+    first of `forms` whose length field holds n."""
+    if fix is not None and n <= fix_max:
+        return struct.pack(">B", fix | n)
+    for code, fmt, limit in forms:
+        if n <= limit:
+            return struct.pack(">B", code) + struct.pack(fmt, n)
+    raise MsgpackError(f"length {n} too large for msgpack")
+
+
+def _pack_int(out: list, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out.append(struct.pack(">b" if v < 0 else ">B", v))
+        return
+    forms = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) if v > 0 else \
+        ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+    for code, fmt in forms:
+        try:
+            out.append(struct.pack(">B", code) + struct.pack(fmt, v))
+            return
+        except struct.error:
+            continue
+    raise MsgpackError(f"int {v} does not fit 64 bits")
+
+
+def _pack(out: list, obj) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        out += [_header(len(data), _STR, 0xA0, 31), data]
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        out += [_header(len(data), _BIN), data]
+    elif isinstance(obj, dict):
+        out.append(_header(len(obj), _MAP, 0x80, 15))
+        for key, value in obj.items():
+            _pack(out, key)
+            _pack(out, value)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_header(len(obj), _ARRAY, 0x90, 15))
+        for item in obj:
+            _pack(out, item)
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.name not in _DTYPES:
+            raise MsgpackError(f"cannot write dtype {obj.dtype.name}; the port writes "
+                               f"{sorted(_DTYPES)}")
+        payload = packb((obj.shape, obj.dtype.name, np.ascontiguousarray(obj).tobytes()))
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):
+            out.append(struct.pack(">Bb", 0xD4 + n.bit_length() - 1, _EXT_NDARRAY))
+        else:
+            out.append(_header(n, _EXT) + struct.pack(">b", _EXT_NDARRAY))
+        out.append(payload)
+    else:
+        raise MsgpackError(f"cannot write {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """Encode nested dicts / lists of str, bytes, ints, floats and numpy
+    arrays (float32, uint8, int8) as flax.serialization.msgpack_serialize
+    does."""
+    out: list[bytes] = []
+    _pack(out, obj)
+    return b"".join(out)
 
 
 def read_variables(path: str | Path) -> dict:

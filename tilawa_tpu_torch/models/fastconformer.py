@@ -1,27 +1,40 @@
-"""FastConformer-CTC encoder as torch modules (inference).
+"""FastConformer-CTC encoder as torch modules: inference and training.
 
-Port of tilawa_tpu/models/fastconformer.py. Module and buffer names are the
-flax parameter names, so a bundle maps onto `state_dict()` one leaf per key
-(models/convert.py): `subsampling.conv_in.kernel`, `blocks.3.ff1.lin1.packed`,
-`blocks.3.conv.bn.mean`, `ctc_head.scales`, ...
+Port of tilawa_tpu/models/fastconformer.py. Module, parameter and buffer
+names are the flax parameter names, so a bundle maps onto `state_dict()` one
+leaf per key (models/convert.py): `subsampling.conv_in.kernel`,
+`blocks.3.ff1.lin1.packed`, `blocks.3.conv.bn.mean`, `ctc_head.scales`, ...
+Float leaves (Dense, Conv, LayerNorm and BatchNorm scale and bias, the
+attention's u/v biases) are f32 `nn.Parameter`s, the master weights that
+training updates; quantized weights and their scales, and BatchNorm's
+running `mean`/`var`, are buffers. The serve paths call the model under
+`torch.inference_mode()`, so the Parameters build no autograd graph there.
 
 Numerics follow flax's rounding points in the compute dtype (bfloat16 for
 the champion): Int4Dense rounds its f32 product to the dtype and then adds
 the rounded bias (int4_dense, one launch on the card); LayerNorm (eps 1e-6)
 takes its statistics in f32 (E[x²] - E[x]²) and casts its output;
-MaskedBatchNorm uses the running stats in f32 (eps 1e-5); attention scores
-are divided in f32 (flax divides the bf16 sum by a numpy float64 scalar,
-which promotes), keys are masked with -1e30 and the softmax runs in f32
-before the cast; the head log-softmax is f32. Convolutions run in the dtype
-with the bias added after the rounded conv output, as flax's nn.Conv does.
+MaskedBatchNorm normalizes in f32 (eps 1e-5); attention scores are divided
+in f32 (flax divides the bf16 sum by a numpy float64 scalar, which
+promotes), keys are masked with -1e30 and the softmax runs in f32 before
+the cast; the head log-softmax is f32. Convolutions run in the dtype with
+the bias added after the rounded conv output, as flax's nn.Conv does.
 
 Int8Dense keeps flax's order: the bf16 product is rounded, then multiplied
 by the bf16 column scales, then the rounded bias is added (int8_dense, one
 launch on the card); quant="mixed" puts the feed-forward pair
 (MIXED_INT4_NAMES) on Int4Dense and every other Dense on Int8Dense.
 
-Only the inference path is ported: no dropout, SpecAugment, remat or batch
-statistics updates.
+Training mode mirrors flax's two flags, which stay apart:
+`deterministic=False` turns on dropout (flax's nn.Dropout: keep with
+probability 1-p, scale by 1/(1-p), in the dtype) and SpecAugment
+(ops/specaug.py); `use_running_average=False` normalizes BatchNorm with the
+batch's masked mean and biased variance in f32 over (B, T) and moves the
+running stats by momentum 0.99. Every random draw comes from the explicit
+`generator`, and a block's dropout masks are drawn before the block runs,
+so `remat=True` (each block under torch.utils.checkpoint) recomputes with
+the same masks. `scan_layers` is flax's compile-time knob and changes
+nothing here: bundles are always written with the scanned layout.
 """
 
 from __future__ import annotations
@@ -35,9 +48,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tilawa_tpu_torch.device import upload
-from tilawa_tpu_torch.ops.frontend import MelTables, log_mel_spectrogram, mel_tables
+from tilawa_tpu_torch.ops.frontend import N_MELS, MelTables, log_mel_spectrogram, mel_tables
+from tilawa_tpu_torch.ops.specaug import spec_augment
 from tilawa_tpu_torch.ops.quant import (
     INT4_BLOCK,
     int4_dense,
@@ -47,11 +62,6 @@ from tilawa_tpu_torch.ops.quant import (
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
-# Keys of a bundle's config.json that only training reads.
-_TRAINING_ONLY = frozenset({
-    "dropout", "scan_layers", "remat",
-    "sa_freq_masks", "sa_freq_width", "sa_time_masks", "sa_time_frac",
-})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +75,11 @@ class FastConformerConfig:
     conv_kernel: int = 9
     subsampling_channels: int = 256
     subsampling_factor: int = 8
+    dropout: float = 0.1
     dtype: torch.dtype = torch.float32
+    # flax's lax.scan over the depth axis; the torch modules are the same
+    # either way (kept so that config.json round-trips with the JAX package).
+    scan_layers: bool = True
     # Weight quantization for every Dense: None (fp), "int4", "int8" or
     # "mixed" (int4 feed-forward pair, int8 elsewhere).
     quant: str | None = None
@@ -73,6 +87,13 @@ class FastConformerConfig:
     # False runs the plain PyTorch ops on any device, as the JAX package's
     # use_pallas=False runs pure XLA.
     use_pallas: bool = True
+    # Recompute each conformer block in the backward pass (training only).
+    remat: bool = False
+    # SpecAugment on the mel features, applied only when deterministic=False.
+    sa_freq_masks: int = 0
+    sa_freq_width: int = 27
+    sa_time_masks: int = 0
+    sa_time_frac: float = 0.05
 
     @property
     def blank_id(self) -> int:
@@ -102,10 +123,19 @@ class FastConformerConfig:
     @classmethod
     def from_json(cls, path: str | Path) -> "FastConformerConfig":
         """A bundle's config.json (tilawa_tpu train/checkpoint.py:load_config)."""
-        raw = json.loads(Path(path).read_text())
-        cfg = {k: v for k, v in raw.items() if k not in _TRAINING_ONLY}
+        cfg = json.loads(Path(path).read_text())
         cfg["dtype"] = _DTYPES[cfg.get("dtype", "float32")]
         return cls(**cfg)
+
+    def to_dict(self) -> dict:
+        """Every field, the dtype by name (train/checkpoint.py:save_variables)."""
+        cfg = dataclasses.asdict(self)
+        cfg["dtype"] = str(self.dtype).removeprefix("torch.")
+        return cfg
+
+    def to_json(self) -> str:
+        """config.json as the JAX package writes it, key for key."""
+        return json.dumps(self.to_dict(), indent=2)
 
 
 def subsampled_length(length, factor: int = 8):
@@ -120,14 +150,26 @@ def _zeros(*shape, dtype=torch.float32) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype)
 
 
+def _param(t: torch.Tensor | None) -> nn.Parameter | None:
+    return None if t is None else nn.Parameter(t)
+
+
+def dropout(x: torch.Tensor, keep: torch.Tensor | None, rate: float) -> torch.Tensor:
+    """flax nn.Dropout with a drawn keep mask: x / (1 - rate) where kept,
+    0 elsewhere, in x's dtype; keep=None is the identity."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class Dense(nn.Module):
     """flax nn.Dense: kernel [K, N] (+ bias), all cast to the dtype."""
 
     def __init__(self, k: int, n: int, cfg: FastConformerConfig, use_bias: bool = True):
         super().__init__()
         self.dtype = cfg.dtype
-        self.register_buffer("kernel", _zeros(k, n))
-        self.register_buffer("bias", _zeros(n) if use_bias else None)
+        self.kernel = _param(_zeros(k, n))
+        self.bias = _param(_zeros(n) if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
@@ -208,8 +250,8 @@ class LayerNorm(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
-        self.register_buffer("scale", torch.ones(d))
-        self.register_buffer("bias", _zeros(d))
+        self.scale = _param(torch.ones(d))
+        self.bias = _param(_zeros(d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -220,20 +262,41 @@ class LayerNorm(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Inference BatchNorm over (batch, time) with the running stats."""
+    """BatchNorm over (batch, time) that ignores padded frames. With
+    `batch_stats` None it normalizes with the running stats; with a list it
+    normalizes with the batch's masked mean and biased variance (f32) and
+    appends them, detached, for update_running."""
 
-    def __init__(self, c: int, dtype: torch.dtype, eps: float = 1e-5):
+    def __init__(self, c: int, dtype: torch.dtype, eps: float = 1e-5,
+                 momentum: float = 0.99):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
-        self.register_buffer("scale", torch.ones(c))
-        self.register_buffer("bias", _zeros(c))
+        self.momentum = momentum
+        self.scale = _param(torch.ones(c))
+        self.bias = _param(_zeros(c))
         self.register_buffer("mean", _zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.mean) * torch.rsqrt(self.var + self.eps)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                batch_stats: list | None = None) -> torch.Tensor:
+        """x [B, T, C], mask [B, T, 1] bool."""
+        if batch_stats is None:
+            mean, var = self.mean, self.var
+        else:
+            cnt = torch.clamp(mask.sum(), min=1).float()
+            xf = x.float()
+            mean = torch.where(mask, xf, 0.0).sum(dim=(0, 1)) / cnt
+            var = (torch.where(mask, xf - mean, 0.0) ** 2).sum(dim=(0, 1)) / cnt
+            batch_stats.append((mean.detach(), var.detach()))
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale + self.bias).to(self.dtype)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """ra = momentum·ra + (1 - momentum)·batch, as flax's MaskedBatchNorm."""
+        self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+        self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
 
 
 class Conv(nn.Module):
@@ -246,8 +309,8 @@ class Conv(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.stride, self.padding, self.groups = stride, padding, groups
-        self.register_buffer("kernel", _zeros(c_out, c_in // groups, *kernel))
-        self.register_buffer("bias", _zeros(c_out))
+        self.kernel = _param(_zeros(c_out, c_in // groups, *kernel))
+        self.bias = _param(_zeros(c_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = F.conv2d if self.kernel.dim() == 4 else F.conv1d
@@ -273,7 +336,7 @@ class ConvSubsampling(nn.Module):
         for i in range(self.stages):
             self.add_module(f"dw_conv_{i}", Conv(ch, ch, (3, 3), dt, stride=2, padding=1, groups=ch))
             self.add_module(f"pw_conv_{i}", Conv(ch, ch, (1, 1), dt))
-        f = cfg.n_mels
+        f = N_MELS   # the frontend's width (flax infers it; cfg.n_mels only sizes FLOPs)
         for _ in range(self.stages + 1):
             f = _stride2_len(f)
         self.proj = make_dense(cfg, f * ch, cfg.d_model)
@@ -302,12 +365,14 @@ class FeedForward(nn.Module):
     def __init__(self, cfg: FastConformerConfig):
         super().__init__()
         d = cfg.d_model
+        self.rate = cfg.dropout
         self.LayerNorm_0 = LayerNorm(d, cfg.dtype)
         self.lin1 = make_dense(cfg, d, d * cfg.ff_expansion, name="lin1")
         self.lin2 = make_dense(cfg, d * cfg.ff_expansion, d, name="lin2")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin2(F.silu(self.lin1(self.LayerNorm_0(x))))
+    def forward(self, x: torch.Tensor, keep=(None, None)) -> torch.Tensor:
+        h = dropout(F.silu(self.lin1(self.LayerNorm_0(x))), keep[0], self.rate)
+        return dropout(self.lin2(h), keep[1], self.rate)
 
 
 def rel_positional_encoding(t: int, d_model: int) -> np.ndarray:
@@ -340,6 +405,11 @@ def _row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     same [H, M, K] @ [H, K, N] call whatever B is."""
     if a.shape[0] == 1:
         return torch.matmul(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        # training: out= has no autograd, and no row needs to match a lone
+        # forward; one batched product (the per-row calls cost a training
+        # step ~2,400 launches at B=16)
+        return torch.matmul(a, b)
     out = torch.empty(a.shape[:-1] + b.shape[-1:], dtype=a.dtype, device=a.device)
     for i in range(a.shape[0]):
         torch.matmul(a[i], b[i] if b.dim() == 4 else b, out=out[i])
@@ -357,12 +427,14 @@ class RelPosSelfAttention(nn.Module):
             self.add_module(name, make_dense(cfg, d, d))
         self.pos = make_dense(cfg, d, d, use_bias=False)
         self.out = make_dense(cfg, d, d)
-        self.register_buffer("bias_u", _zeros(h, d // h))
-        self.register_buffer("bias_v", _zeros(h, d // h))
+        self.bias_u = _param(_zeros(h, d // h))
+        self.bias_v = _param(_zeros(h, d // h))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
         """x [B, T, D], mask [B, T, 1], pos [2T-1, D] relative-position
-        embeddings in the dtype (rel_positional_encoding)."""
+        embeddings in the dtype (rel_positional_encoding); keep [B, H, T, T]
+        the attention-weight dropout mask."""
         cfg, dt = self.cfg, self.cfg.dtype
         b, t, d = x.shape
         h, dh = cfg.num_heads, d // cfg.num_heads
@@ -380,7 +452,7 @@ class RelPosSelfAttention(nn.Module):
 
         key_mask = mask[:, None, None, :, 0]                    # [B,1,1,T]
         scores = torch.where(key_mask, scores, -1e30)
-        attn = torch.softmax(scores, dim=-1).to(dt)
+        attn = dropout(torch.softmax(scores, dim=-1).to(dt), keep, cfg.dropout)
         out = _row_matmul(attn, v.transpose(1, 2))              # [B,H,T,dh]
         return self.out(out.transpose(1, 2).reshape(b, t, d))
 
@@ -389,6 +461,7 @@ class ConvModule(nn.Module):
     def __init__(self, cfg: FastConformerConfig):
         super().__init__()
         d = cfg.d_model
+        self.rate = cfg.dropout
         self.LayerNorm_0 = LayerNorm(d, cfg.dtype)
         self.pw1 = make_dense(cfg, d, 2 * d)
         pad = (cfg.conv_kernel - 1) // 2
@@ -396,11 +469,12 @@ class ConvModule(nn.Module):
         self.bn = MaskedBatchNorm(d, cfg.dtype)
         self.pw2 = make_dense(cfg, d, d)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, keep: torch.Tensor | None = None,
+                batch_stats: list | None = None) -> torch.Tensor:
         h = F.glu(self.pw1(self.LayerNorm_0(x)), dim=-1)
         h = torch.where(mask, h, 0.0)  # keep padded frames out of the conv taps
         h = self.dw(h.transpose(1, 2)).transpose(1, 2)
-        return self.pw2(F.silu(self.bn(h)))
+        return dropout(self.pw2(F.silu(self.bn(h, mask, batch_stats))), keep, self.rate)
 
 
 class ConformerBlock(nn.Module):
@@ -413,12 +487,28 @@ class ConformerBlock(nn.Module):
         self.ff2 = FeedForward(cfg)
         self.final_ln = LayerNorm(cfg.d_model, cfg.dtype)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        x = x + 0.5 * self.ff1(x)
-        x = x + self.attn(self.attn_ln(x), mask, pos)
-        x = x + self.conv(x, mask)
-        x = x + 0.5 * self.ff2(x)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor,
+                keep: tuple | None = None, batch_stats: list | None = None) -> torch.Tensor:
+        """keep: the block's six dropout masks (draw_block_masks) or None;
+        batch_stats: a list to normalize BatchNorm with the batch's stats."""
+        k = keep or (None,) * 6
+        x = x + 0.5 * self.ff1(x, k[0:2])
+        x = x + self.attn(self.attn_ln(x), mask, pos, k[2])
+        x = x + self.conv(x, mask, k[3], batch_stats)
+        x = x + 0.5 * self.ff2(x, k[4:6])
         return self.final_ln(x)
+
+
+def draw_block_masks(cfg: FastConformerConfig, b: int, t: int,
+                     generator: torch.Generator, device: torch.device) -> tuple:
+    """One block's dropout keep masks, in the order the block applies them:
+    ff1 (hidden, out), attention weights, conv out, ff2 (hidden, out)."""
+    d, hid = cfg.d_model, cfg.d_model * cfg.ff_expansion
+    shapes = ((b, t, hid), (b, t, d), (b, cfg.num_heads, t, t), (b, t, d), (b, t, hid), (b, t, d))
+    keep = 1.0 - cfg.dropout
+    return tuple(
+        torch.rand(s, generator=generator, device=device) < keep for s in shapes
+    )
 
 
 class FastConformerCTC(nn.Module):
@@ -442,12 +532,33 @@ class FastConformerCTC(nn.Module):
         return MelTables(*(getattr(self, f"mel_{name}") for name in MelTables._fields))
 
     def forward(
-        self, audio: torch.Tensor, lengths: torch.Tensor
+        self, audio: torch.Tensor, lengths: torch.Tensor, *,
+        deterministic: bool = True, use_running_average: bool = True,
+        generator: torch.Generator | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """deterministic=False applies dropout and SpecAugment with draws
+        from `generator` (on the audio's device); use_running_average=False
+        normalizes BatchNorm with the batch's statistics and updates the
+        running stats (flax's mutable batch_stats)."""
         cfg = self.cfg
+        if cfg.quant is not None and torch.is_grad_enabled() and (
+            not deterministic or not use_running_average
+        ):
+            raise ValueError(f"a quantized ({cfg.quant}) model cannot be trained; "
+                             "dequantize it (train/quantize.py) first")
+        random = not deterministic and (
+            cfg.dropout > 0 or cfg.sa_freq_masks or cfg.sa_time_masks)
+        if random and generator is None:
+            raise ValueError("deterministic=False needs a torch.Generator for its draws")
         feats, feat_lengths = log_mel_spectrogram(
             audio, lengths, self.tables(), use_kernel=cfg.use_pallas
         )
+        if not deterministic and (cfg.sa_freq_masks or cfg.sa_time_masks):
+            feats = spec_augment(
+                feats, feat_lengths, generator,
+                freq_masks=cfg.sa_freq_masks, freq_width=cfg.sa_freq_width,
+                time_masks=cfg.sa_time_masks, time_frac=cfg.sa_time_frac,
+            )
         x = self.subsampling(feats, feat_lengths)
         enc_lengths = subsampled_length(feat_lengths, cfg.subsampling_factor)
         t = x.shape[1]
@@ -457,8 +568,18 @@ class FastConformerCTC(nn.Module):
         # uploaded once without a host sync (device.upload: pinned, non-
         # blocking), then cast on the device.
         pos = upload(rel_positional_encoding(t, cfg.d_model), x.device).to(cfg.dtype)
+        drop = not deterministic and cfg.dropout > 0
         for block in self.blocks:
-            x = block(x, mask, pos)
+            keep = draw_block_masks(cfg, x.shape[0], t, generator, x.device) if drop else None
+            stats = None if use_running_average else []
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, mask, pos, keep, stats, use_reentrant=False)
+            else:
+                x = block(x, mask, pos, keep, stats)
+            if stats:
+                # the first forward's statistics; a remat recompute appends
+                # its own to this list after the update and is ignored
+                block.conv.bn.update_running(*stats[0])
         logits = self.ctc_head(x)
         return torch.log_softmax(logits.float(), dim=-1), enc_lengths.to(torch.int32)
 

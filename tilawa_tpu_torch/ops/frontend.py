@@ -151,6 +151,7 @@ def fused_log_mel(
     a CUDA tensor (the 257-bin power spectrum never leaves the chip);
     log_mel_plain on a CPU tensor. Normalization stays outside (it needs
     the true lengths)."""
+    kernels.forward_only("fused_log_mel", pre)
     if pre.device.type == "cpu":
         return log_mel_plain(pre, tables, eps)
     if pre.device.type != "cuda":
@@ -204,15 +205,22 @@ def log_mel_spectrogram(
     [B] int32). Frames beyond a sample's true length are zeroed;
     per-feature normalization statistics use only valid frames.
     use_kernel=False runs log_mel_plain on any device."""
-    t_frames = num_frames(audio.shape[1])
-
     # Preemphasis: y[0] = x[0], y[t] = x[t] - c*x[t-1].
     pre = torch.cat([audio[:, :1], audio[:, 1:] - PREEMPH * audio[:, :-1]], dim=1)
     logmel = (fused_log_mel if use_kernel else log_mel_plain)(pre, tables, eps)
+    return normalize_log_mel(logmel, lengths)
 
+
+def normalize_log_mel(
+    logmel: torch.Tensor,    # [B, T, 80] f32
+    lengths: torch.Tensor,   # [B] int — valid sample counts
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """log_mel_spectrogram's per-feature normalization over each sample's
+    valid frames, padded frames zeroed; (features, feat_lengths)."""
+    t_frames = logmel.shape[1]
     feat_lengths = frames_for_length(lengths).to(torch.int32)
     mask = (
-        torch.arange(t_frames, device=audio.device)[None, :] < feat_lengths[:, None]
+        torch.arange(t_frames, device=logmel.device)[None, :] < feat_lengths[:, None]
     )[..., None]                                                    # [B, T, 1]
 
     cnt = torch.clamp(feat_lengths[:, None, None].to(logmel.dtype), min=1.0)

@@ -11,6 +11,11 @@ without nvcc (the CPU test tier) import every module and never build.
 The launch counters are plain integers, one per kernel. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels.
+
+The kernels compute forward only: a wrapper handed a tensor that needs a
+gradient under grad mode raises (forward_only), on every device, rather
+than return an output with no grad_fn that would silently drop the
+gradient.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -137,6 +144,16 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _fns[(name, symbol)] = fn
     return fn
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel's inputs."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} computes forward only and has no backward: an input requires a "
+            "gradient under grad mode (run it under torch.no_grad(), or train the "
+            "dequantized model)"
+        )
 
 
 def check(err: int, what: str) -> None:

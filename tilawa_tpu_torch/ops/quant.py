@@ -256,6 +256,7 @@ def int4_matmul(
     """x [..., M, K] @ dequant(packed [K//2, N], scales [ceil(K/32), N]) →
     f32 [..., M, N]. CUDA tensors go through the hand-written kernel, CPU
     tensors through int4_matmul_plain."""
+    kernels.forward_only("int4_matmul", x, packed, scales)
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, block)
     _check_int4(x, packed, scales, block, "int4_matmul")
@@ -270,6 +271,7 @@ def int4_dense(
     """Int4Dense: the int4 product cast to `dtype` (bfloat16 or float32),
     plus the bias cast to `dtype`, in one launch. CUDA tensors go through the
     hand-written kernel, CPU tensors through int4_dense_plain."""
+    kernels.forward_only("int4_dense", x, packed, scales, bias)
     if x.device.type == "cpu":
         return int4_dense_plain(x, packed, scales, bias, dtype)
     _check_int4(x, packed, scales, INT4_BLOCK, "int4_dense")
@@ -304,6 +306,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor) -> torch
     (_int8_kernel's order: the scale is applied to W before the product).
     CUDA tensors go through the hand-written kernel, CPU tensors through
     int8_matmul_plain."""
+    kernels.forward_only("int8_matmul", x, q, scales)
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, scales)
     _check_int8(x, q, scales, "int8_matmul")
@@ -318,6 +321,7 @@ def int8_dense(
     bf16 [..., M, N] (Int8Dense's order: the scale after the product, then
     the bias), in one launch. CUDA tensors go through the hand-written
     kernel, CPU tensors through int8_dense_plain."""
+    kernels.forward_only("int8_dense", x, q, scales, bias)
     if x.device.type == "cpu":
         return int8_dense_plain(x, q, scales, bias)
     _check_int8(x, q, scales, "int8_dense")

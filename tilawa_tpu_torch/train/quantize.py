@@ -1,13 +1,17 @@
 """Post-training quantization of a bundle's variables: fp Dense kernels →
-packed int4 (or the mixed int4/int8 recipe).
+packed int4 (or the mixed int4/int8 recipe), and back.
 
-Port of tilawa_tpu/train/quantize.py:23-93 (the packing half; the inverse
-and the training-side helpers stay with training, ROADMAP A.6). Numpy over
-the nested-dict tree the port's bundle reader returns: every eligible Dense
-`kernel` becomes `packed`/`scales` (int4, ops/quant.pack_int4) or `q`/
-`scales` (int8, ops/quant.quantize_int8), with the bias kept as it is, so
-the result loads with models/convert.load_into into a model built with
-quantized_config(config). Leaves stay numpy arrays.
+Port of tilawa_tpu/train/quantize.py. Numpy over the nested-dict tree the
+port's bundle reader returns: every eligible Dense `kernel` becomes
+`packed`/`scales` (int4, ops/quant.pack_int4) or `q`/`scales` (int8,
+ops/quant.quantize_int8), with the bias kept as it is, so the result loads
+with models/convert.load_into into a model built with
+quantized_config(config). dequantize_params is the inverse (f32 kernels,
+the warm start of continuation training); int4 → f32 → int4 gives back the
+same bytes. Leaves stay numpy arrays, and each map keeps the order of the
+tree given, with a quantized layer's leaves in the order packed (or q),
+scales, bias and a dequantized one's as kernel, bias: the order the JAX
+package builds, on which the bytes of a written bundle depend.
 """
 
 from __future__ import annotations
@@ -16,8 +20,15 @@ import dataclasses
 
 import numpy as np
 
+from tilawa_tpu_torch.models.convert import packed_size_bytes  # noqa: F401 (re-export)
 from tilawa_tpu_torch.models.fastconformer import MIXED_INT4_NAMES, FastConformerConfig
-from tilawa_tpu_torch.ops.quant import INT4_BLOCK, pack_int4, quantize_int8
+from tilawa_tpu_torch.ops.quant import (
+    INT4_BLOCK,
+    dequantize_int8,
+    pack_int4,
+    quantize_int8,
+    unpack_int4,
+)
 
 # Module names whose `kernel` is a matmul weight (rank-2, or rank-3 when
 # scan-stacked over layers). Convs/LayerNorms are not in this set.
@@ -78,3 +89,42 @@ def quantized_config(
     config: FastConformerConfig, mode: str = "int4", **overrides
 ) -> FastConformerConfig:
     return dataclasses.replace(config, quant=mode, **overrides)
+
+
+def _unpack_kernel(packed: np.ndarray, scales: np.ndarray, block: int) -> np.ndarray:
+    if packed.ndim == 2:
+        return unpack_int4(packed, scales, block)
+    # scan-stacked [L, K//2, N]
+    return np.stack([unpack_int4(packed[i], scales[i], block) for i in range(packed.shape[0])])
+
+
+def dequantize_params(params: dict, block: int = INT4_BLOCK) -> dict:
+    """Inverse of quantize_params: packed int4 and int8 leaves back to f32
+    kernels (lossy against the original fp weights; the warm start of
+    continuation training when only a quantized export survives)."""
+    out = {}
+    for name, sub in params.items():
+        if isinstance(sub, dict) and "scales" in sub and ("packed" in sub or "q" in sub):
+            if "packed" in sub:
+                kern = _unpack_kernel(np.asarray(sub["packed"]), np.asarray(sub["scales"]), block)
+            else:
+                kern = dequantize_int8(np.asarray(sub["q"]), np.asarray(sub["scales"]))
+            entry = {"kernel": kern.astype(np.float32)}
+            if "bias" in sub:
+                entry["bias"] = sub["bias"]
+            out[name] = entry
+        elif isinstance(sub, dict):
+            out[name] = dequantize_params(sub, block)
+        else:
+            out[name] = sub
+    return out
+
+
+def dequantize_variables(variables: dict, block: int = INT4_BLOCK) -> dict:
+    new = dict(variables)
+    new["params"] = dequantize_params(dict(variables["params"]), block)
+    return new
+
+
+def dequantized_config(config: FastConformerConfig, **overrides) -> FastConformerConfig:
+    return dataclasses.replace(config, quant=None, **overrides)
