@@ -19,8 +19,10 @@ without the final line):
                  the log-mel at every (B, N) the paths launch (B=8 at every
                  bucket of the batched eval, every training bucket), its
                  frames bitwise
-                 independent of B and of their offset; timings of the
-                 kernel, the plain version and a one-call library yardstick
+                 independent of B and of their offset; int4 and the log-mel
+                 also at the context sweep's M = B·T and (B, N); timings of
+                 the kernel, the plain version and a one-call library
+                 yardstick
   4. main path   champion-int4 Recognizer(tta=True).predict over wav clips
                  of benchmark/test_corpus (each must match the manifest),
                  plus the >25 s transcribe fallback; launch counters are
@@ -56,19 +58,25 @@ without the final line):
                  sequence accuracy 1.0), with per-cycle forward, fusion
                  scoring and feed times; counters zeroed just before the
                  replay and read just after
-  11. cache      StreamingEncoderCache on a window over 16 s, cold and
+  11. streaming  every decodable v1 clip (N >= 37) through validate_streaming
+      corpus     on stream6-int8 in 300 ms chunks (counters zeroed just
+                 before, read just after): each clip's emissions and final
+                 sequence against the JAX package's recorded run; the
+                 STREAM_IDS at sequence accuracy 1.0; 189 int8 + 1 log-mel a
+                 forward
+  12. cache      StreamingEncoderCache on a window over 16 s, cold and
                  with its tail grown by 1 s, against forward_long (ids,
                  t_valid, log-probs), and the ops whose row 0 changes with
                  the batch size at equal input
-  12. server     the port's WebSocket server in-process on 127.0.0.1
+  13. server     the port's WebSocket server in-process on 127.0.0.1
                  (TILAWA_CHECKPOINT=exports/stream6-int8, tracker engine):
                  two ws_client streams at once, each of which must get a
                  verse_match for its clip's verse; then the port's ws_bench
                  with two clients over the four streaming clips, flat out,
                  each at sequence accuracy 1.0, per-message latency p50/p90
-  13. champion   the trace's two clips' forward and predict once more, in
+  14. champion   the trace's two clips' forward and predict once more, in
       again      the process state the phases before leave behind
-  14. train      train.finetune's recipe at full width from the dequantized
+  15. train      train.finetune's recipe at full width from the dequantized
                  champion-int4 over bucketed v1 batches, TRAIN_STEPS steps
                  (in a temporary directory outside the tree), finetune's
                  own log_every: per step the bucket, loss, step ms (CUDA
@@ -77,29 +85,47 @@ without the final line):
                  finite losses, nothing moved by step 0 (lr 0), parameters
                  moved by step 1, frozen BatchNorm stats, one log-mel
                  launch a step, no int4, no sync from the port's code
-  15. train vs   one step on a fixed v1 batch (dropout 0, no SpecAugment)
+  16. train vs   one step on a fixed v1 batch (dropout 0, no SpecAugment)
       plain      with the log-mel kernel and with the plain log-mel, f32 and
                  bf16 compute: |Δ loss| and the largest per-leaf
                  max|Δg|/max|g|, in f32 gated by the same deltas of the
                  plain step with ±MEL_TOL noise on its log-mel (bf16
                  printed); then one bf16 step under torch.profiler
-  16. distill    train_distill: student the dequantized champion, teacher
+  17. distill    train_distill: student the dequantized champion, teacher
                  champion-int4 on the int4 kernel, DISTILL_STEPS steps over
                  distill_batches(v1): KL, auxiliary CTC, step ms, syncs as
                  in "train"; 189 int4 launches a step (the teacher) and 2
                  log-mel; before it, the KL of teacher and student on the
                  first batch's full clips, within SAME_WEIGHTS_KL
-  17. export     export_bundle of the train phase's checkpoint as int4:
+  18. export     export_bundle of the train phase's checkpoint as int4:
                  verify_bundle, the server's sha256 check, and
                  Recognizer(tta=True) on the 8 clips at 1.0 with 189 int4
                  launches a forward
+  19. families   on champion-int4: fastconformer-quran-lm-fusion through the
+                 runner over every v1 sample (real acoustics, no error, every
+                 clip the JAX package's recorded run gets right right here),
+                 then two-stage and the six pruned-ctc variants over the
+                 wav clips (no error; recall, sequence accuracy, p50, the
+                 CTC lattice's ms per clip); every run with 11·L + 2 int4
+                 and one log-mel launch a forward of its L-block runtimes
+                 (counters zeroed just before each, read just after);
+                 heldout raises FileNotFoundError where its bundle is not in
+                 the copy
+  20. harnesses  the context sweep over the wav clips (launches as in 19;
+                 every row of a sweep's B-row forward bitwise the same row
+                 forwarded alone at the same bucket), run_stability of the
+                 champion experiment (3 repeats: no flaky sample),
+                 tracker_oracle over v1 (host only, no launch; its policy
+                 ceiling), analyze and compare over this run's eval and
+                 streaming corpus rows
 
 The last four lines: one JSON object {"train": {...}} (step ms, audio-s/s,
 peak bytes, training MFU, distill step ms, the kernel-vs-plain deltas, the
 card and its power limit), nvidia-smi's name and power limit, one JSON
 object with every kernel's numbers (`launches`: the eval phase's run;
 `train_launches`: the train phase's log-mel and the distill teacher's
-int4), and {"ok": true, "device": {...}}.
+int4; `path_launches`: one entry per path of phases 11, 19 and 20), and
+{"ok": true, "device": {...}}.
 Imports nothing of JAX, flax, msgpack or tilawa_tpu.
 """
 
@@ -108,6 +134,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -141,6 +168,14 @@ OTHER_EXPERIMENTS = ("c2c-direct-mixed", "fastconformer-zeroshot", "ctc-alignmen
 MIN_EVAL_CLIPS = 37
 # the JAX package's recorded run of MAIN_EXPERIMENT over v1 (44 clips at 1.0)
 JAX_RECORDED_RUN = ROOT / "benchmark" / "results" / "2026-08-21_095830.json"
+# ... of fastconformer-quran-lm-fusion over v1 (real acoustics; exactly right on 35
+# of the 37 wav clips): every clip it gets right must be right on the port
+JAX_LM_FUSION_RUN = ROOT / "benchmark" / "results" / "2026-08-21_142224.json"
+LM_FUSION = "fastconformer-quran-lm-fusion"
+# ... of the tracker on stream6-int8 over v1 in 300 ms chunks (per-clip emissions and
+# final_sequence; exactly right on 25 of the 37 wav clips): compared, not gated
+JAX_STREAM_RUN = ROOT / "benchmark" / "results" / "2026-08-21_204047.json"
+STABILITY_REPEATS = 3
 BENCH_BUDGET_S = 300
 WS_CLIENTS = 2
 CHAMPION = ROOT / "exports" / "champion-int4"
@@ -195,12 +230,31 @@ MEL_OFFSETS = (1, 2, 3, 5, 97)   # frame offsets for the bitwise shift check
 
 
 def mel_shapes() -> tuple[tuple[int, int], ...]:
-    """MEL_SHAPES and the (B, N) of every train.data.BUCKETS batch: the
-    training forwards, and distillation's teacher and student (its buckets
-    are those up to train.distill.MAX_BUCKET_S)."""
+    """MEL_SHAPES, the (B, N) of every train.data.BUCKETS batch (the
+    training forwards, and distillation's teacher and student: its buckets
+    are those up to train.distill.MAX_BUCKET_S) and the context sweep's."""
     from tilawa_tpu_torch.train.data import BUCKETS
 
-    return tuple(dict.fromkeys((*MEL_SHAPES, *((bs, int(sec * 16000)) for sec, bs in BUCKETS))))
+    return tuple(dict.fromkeys((*MEL_SHAPES, *((bs, int(sec * 16000)) for sec, bs in BUCKETS),
+                                *((b, n) for b, n, _t in sweep_shapes()))))
+
+
+@functools.lru_cache(maxsize=1)
+def sweep_shapes() -> tuple[tuple[int, int, int], ...]:
+    """(B, N, T) of the context sweep's forward of each of CLIPS: its
+    prefix cuts and the clip as B rows padded to the clip's audio bucket N
+    (T encoder frames)."""
+    from tilawa_tpu_torch.data.audio import load_audio
+    from tilawa_tpu_torch.eval.context_sweep import sweep_pieces
+    from tilawa_tpu_torch.pipeline.runtime import bucket_length
+    from tilawa_tpu_torch.train.train import encoder_lengths
+
+    out = []
+    for clip in CLIPS:
+        _keys, pieces = sweep_pieces(load_audio(CORPUS / clip))
+        n = bucket_length(max(len(p) for p in pieces))
+        out.append((len(pieces), n, int(encoder_lengths([n])[0])))
+    return tuple(dict.fromkeys(out))
 
 # The champion's int4 products per forward, (K, N, launches), at M encoder
 # rows (pos runs over the 2T-1 relative positions).
@@ -215,6 +269,15 @@ INT4_SHAPES = (
     ("ctc_head", 512, 1025, 1),
 )
 INT4_LAUNCHES_PER_FORWARD = sum(s[3] for s in INT4_SHAPES)
+
+
+def int4_launches(num_layers: int) -> int:
+    """int4 products of a forward of `num_layers` blocks: INT4_SHAPES holds
+    17 blocks' (11 a block) and the projection and CTC head once each."""
+    return sum(count if count == 1 else count // 17 * num_layers
+               for _name, _k, _n, count in INT4_SHAPES)
+
+
 NO_BIAS = frozenset({"pos"})   # the one Dense built with use_bias=False
 # stream6-int8 runs the same 189 products as Int8Dense layers
 INT8_LAUNCHES_PER_FORWARD = INT4_LAUNCHES_PER_FORWARD
@@ -255,11 +318,18 @@ def distill_ms(name: str) -> tuple[int, ...]:
     return tuple(out)
 
 
+def sweep_m(name: str, b: int, t: int) -> int:
+    """The rows M a product runs at in the context sweep's B-row forward."""
+    return 2 * t - 1 if name == "pos" else b * t
+
+
 def int4_ms(name: str) -> tuple[int, ...]:
-    """Every M the champion's products run at: per clip, batched and in
-    the distillation teacher."""
+    """Every M the champion's products run at: per clip, batched, in the
+    distillation teacher and in the context sweep (pruned and two-stage
+    forwards run at the per-clip M)."""
     return tuple(sorted(set(path_ms(name)) | {batched_m(name, t) for t in BATCH_T}
-                        | set(distill_ms(name))))
+                        | set(distill_ms(name))
+                        | {sweep_m(name, b, t) for b, _n, t in sweep_shapes()}))
 
 
 class PhaseFailed(Exception):
@@ -481,6 +551,14 @@ def check_int4(torch, np, quant, flush) -> dict:
         print(f"  int4 (layer) per distillation teacher forward M={m} (pos M={ms_of['pos'][j]}, "
               f"{INT4_LAUNCHES_PER_FORWARD} launches): " + ", ".join(
                   f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+    sweep = []
+    for b, n, t in sweep_shapes():
+        per = {key: sum(count * layer_rows[(name, sweep_m(name, b, t))][key]
+                        for name, _k, _n, count in INT4_SHAPES) for key in keys}
+        sweep.append({"b": b, "n": n, "t": t, "m": b * t, **per})
+        print(f"  int4 (layer) per context-sweep forward B={b} N={n} (M={b * t}, pos M={2 * t - 1}, "
+              f"{INT4_LAUNCHES_PER_FORWARD} launches): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     return {
         "name": "int4_matmul", "route": "cuda",
         "source": "tilawa_tpu_torch/csrc/quant_matmul.cuh",
@@ -491,6 +569,7 @@ def check_int4(torch, np, quant, flush) -> dict:
         **{f"f32_out_{k}": v for k, v in totals["f32"].items()},
         "flip_rate": flips / elems,
         "batched_per_forward": batched, "teacher_per_forward": teacher,
+        "sweep_per_forward": sweep,
         "shapes": list(layer_rows.values()),
     }
 
@@ -694,6 +773,7 @@ def check_log_mel(torch, np, frontend, flush) -> dict:
         **{k: rows[(2, 64000)][k] for k in keys},
         **{f"b1_{k}": rows[(1, 64000)][k] for k in keys},
         "shapes": list(rows.values()), "launch_floor_ms": floor,
+        "sweep_shapes": [rows[(b, n)] for b, n, _t in sweep_shapes()],
     }
 
 
@@ -712,28 +792,14 @@ def streaming(torch, kernels, rerank, validate_streaming, recognizer) -> dict:
     runtime = recognizer.runtime
     forward_s: list[float] = []
     scoring_s: list[float] = []
-    real_forward, real_score = runtime.forward, rerank.score_token_lists
-
-    def timed_forward(audio):
-        t = time.perf_counter()
-        out = real_forward(audio)
-        forward_s.append(time.perf_counter() - t)
-        return out
-
-    def timed_score(*args, **kw):
-        t = time.perf_counter()
-        out = real_score(*args, **kw)
-        scoring_s.append(time.perf_counter() - t)
-        return out
 
     def transcribe(audio):
         return recognizer.transcribe_result(audio)
 
     db, store = recognizer.db, recognizer.token_store
-    runtime.forward = timed_forward
-    rerank.score_token_lists = timed_score
     wrong = []
-    try:
+    with timed_calls(runtime, "forward", forward_s), \
+            timed_calls(rerank, "score_token_lists", scoring_s):
         torch.cuda.synchronize()
         kernels.reset_launches()
         runtime.forwards = 0
@@ -754,9 +820,6 @@ def streaming(torch, kernels, rerank, validate_streaming, recognizer) -> dict:
                 wrong.append(clip_id)
         torch.cuda.synchronize()
         launches, forwards = dict(kernels.LAUNCHES), runtime.forwards
-    finally:
-        del runtime.forward
-        rerank.score_token_lists = real_score
     print(f"  replay: {forwards} forwards; launches {launches}", flush=True)
     if wrong:
         raise AssertionError(f"streaming clips below sequence accuracy 1.0: {wrong}")
@@ -1733,6 +1796,287 @@ def export_phase(torch, kernels, checkpoint: Path, out: Path, manifest: dict) ->
         raise AssertionError("the exported bundle did not run 189 int4 launches a forward")
 
 
+def _verses(entries) -> list[tuple[int, int]]:
+    return [(e["surah"], e["ayah"]) for e in entries or []]
+
+
+def streaming_corpus(torch, kernels, validate_streaming, recognizer) -> tuple[dict, dict]:
+    """Every decodable v1 clip through validate_streaming's tracker on
+    stream6-int8 in 300 ms chunks (counters zeroed just before, read just
+    after), each clip's emissions and final sequence against the JAX
+    package's recorded run JAX_STREAM_RUN. Gates: at least MIN_EVAL_CLIPS
+    clips, the STREAM_IDS at sequence accuracy 1.0, 189 int8 + 1 log-mel
+    launches a forward. Returns (result, launches)."""
+    runtime = recognizer.runtime
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    runtime.forwards = 0
+    t = time.perf_counter()
+    res = validate_streaming.run_validation(
+        recognizer.transcribe_result, db=recognizer.db, token_store=recognizer.token_store,
+        verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches, forwards = dict(kernels.LAUNCHES), runtime.forwards
+    recorded = {r["id"]: r for r in json.loads(JAX_STREAM_RUN.read_text())[0]["per_sample"]}
+    ours = {r["id"]: r for r in res["per_sample"]}
+    same_final = [i for i, r in ours.items()
+                  if _verses(r["final_sequence"]) == _verses(recorded[i]["final_sequence"])]
+    same_emitted = [i for i, r in ours.items()
+                    if _verses(r["predicted"]) == _verses(recorded[i]["predicted"])]
+    record_right = [i for i in ours if recorded[i]["sequence_accuracy"] == 1.0]
+    missed = [i for i in record_right if ours[i]["sequence_accuracy"] != 1.0]
+    rescued = [i for i in ours if i not in record_right and ours[i]["sequence_accuracy"] == 1.0]
+    for i, r in ours.items():
+        rec = recorded[i]
+        print(f"  {i:22s} seq_acc {r['sequence_accuracy']:.2f} (JAX record "
+              f"{rec['sequence_accuracy']:.2f})  final {_verses(r['final_sequence'])}"
+              + ("" if i in same_final else f" vs JAX {_verses(rec['final_sequence'])}")
+              + f"  wall {r['latency']:.2f} s", flush=True)
+    print(f"  {res['total']} clips ({res['skipped']} skipped) in {wall:.1f} s: seq_acc "
+          f"{res['sequence_accuracy']:.4f}, viterbi {res['viterbi_sequence_accuracy']:.4f}, "
+          f"recall {res['recall']:.4f}; decode feed p50/p90 {res['decode_cycle_p50'] * 1e3:.1f}/"
+          f"{res['decode_cycle_p90'] * 1e3:.1f} ms; {forwards} forwards", flush=True)
+    record_acc = sum(recorded[i]["sequence_accuracy"] for i in ours) / max(len(ours), 1)
+    print(f"  against the JAX record {JAX_STREAM_RUN.name}: final sequence equal on "
+          f"{len(same_final)} of {len(ours)} clips, emissions equal on {len(same_emitted)}; the "
+          f"record gets {len(record_right)} of them exactly right (its seq_acc on them "
+          f"{record_acc:.4f}), the port misses {len(missed)} of those {missed}, and gets "
+          f"{len(rescued)} right that the record misses {rescued}", flush=True)
+    wrong = [i for i in STREAM_IDS if ours.get(i, {}).get("sequence_accuracy") != 1.0]
+    if wrong:
+        raise AssertionError(f"streaming clips below sequence accuracy 1.0: {wrong}")
+    if res["total"] < MIN_EVAL_CLIPS:
+        raise AssertionError(f"only {res['total']} clips replayed (want >= {MIN_EVAL_CLIPS})")
+    if forwards == 0 or launches["int8_matmul"] != INT8_LAUNCHES_PER_FORWARD * forwards \
+            or launches["log_mel"] != forwards or launches["int4_matmul"] != 0:
+        raise AssertionError("the corpus replay did not run the int8 and log-mel kernels "
+                             "once per layer and forward")
+    return res, launches
+
+
+@contextmanager
+def timed_calls(owner, attr: str, sink: list):
+    """Wall seconds of every call of owner.attr (a module's function or an
+    object's method) while inside."""
+    real = getattr(owner, attr)
+    own = attr in vars(owner)
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        out = real(*args, **kw)
+        sink.append(time.perf_counter() - t)
+        return out
+
+    setattr(owner, attr, timed)
+    try:
+        yield sink
+    finally:
+        if own:
+            setattr(owner, attr, real)
+        else:
+            delattr(owner, attr)
+
+
+def counted(torch, kernels, runtimes, fn):
+    """fn() with the launch counters and the runtimes' forward counts
+    zeroed just before and read just after: (result, launches, forwards)."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for rt in runtimes:
+        rt.forwards = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.LAUNCHES), [rt.forwards for rt in runtimes]
+
+
+def check_launches(what: str, launches: dict, runtimes, forwards: list[int]) -> None:
+    """11·L + 2 int4 launches a forward of an L-block runtime, one log-mel
+    a forward, no int8."""
+    int4 = sum(int4_launches(rt.config.num_layers) * f for rt, f in zip(runtimes, forwards))
+    depth = " + ".join(f"{f} x {int4_launches(rt.config.num_layers)} (L={rt.config.num_layers})"
+                       for rt, f in zip(runtimes, forwards))
+    print(f"  {what}: forwards {forwards}; launches {launches}; int4 expected {depth} = {int4}",
+          flush=True)
+    if sum(forwards) == 0 or launches["int4_matmul"] != int4 \
+            or launches["log_mel"] != sum(forwards) or launches["int8_matmul"] != 0:
+        raise AssertionError(f"{what} did not run 11·L + 2 int4 and one log-mel launch a forward")
+
+
+def families(torch, kernels, rerank, get_experiment, load_manifest, run_experiment) -> dict:
+    """The families that run on champion-int4: LM fusion over every v1
+    sample (real acoustics, each clip the JAX record gets right right here),
+    two-stage and the six pruned-ctc variants over CLIPS (no error), each
+    with 11·L + 2 int4 launches a forward of its L-block runtimes; heldout
+    raises FileNotFoundError where its bundle is not in the copy. Returns
+    {path: (int4 launches, log-mel launches)}."""
+    samples, corpus_dir = load_manifest("v1")
+    clip_samples = [s for s in samples if s["file"] in CLIPS]
+    out = {}
+
+    exp = get_experiment(LM_FUSION, DEVICE)
+    if exp.acoustics != "real" or exp.real is None:
+        raise AssertionError(f"{LM_FUSION} runs on {exp.acoustics} acoustics, not the champion")
+    res, launches, fw = counted(torch, kernels, [exp.real.runtime],
+                                lambda: run_experiment(LM_FUSION, exp, samples, corpus_dir))
+    check_launches(LM_FUSION, launches, [exp.real.runtime], fw)
+    out[LM_FUSION] = (launches["int4_matmul"], launches["log_mel"])
+    errors = [d["id"] for d in res["dispositions"] if d["status"] == "error"]
+    recorded = {r["id"]: r for r in json.loads(JAX_LM_FUSION_RUN.read_text())[0]["per_sample"]}
+    ours = {r["id"]: r for r in res["per_sample"]}
+    right = [i for i in ours if recorded[i]["sequence_accuracy"] == 1.0]
+    missed = [i for i in right if ours[i]["sequence_accuracy"] != 1.0]
+    same = [i for i in ours if _verses(ours[i]["predicted"]) == _verses(recorded[i]["predicted"])]
+    print(f"  {LM_FUSION}: N={res['total']} recall {res['recall']:.4f} seq_acc "
+          f"{res['sequence_accuracy']:.4f} p50 {res['p50_latency'] * 1e3:.2f} ms ({res['acoustics']} "
+          f"acoustics); {len(same)} of {len(ours)} clips emit the verses of the JAX record "
+          f"{JAX_LM_FUSION_RUN.name}; it gets {len(right)} of them right, the port misses "
+          f"{missed}; wrong here: "
+          f"{[i for i, r in ours.items() if r['sequence_accuracy'] != 1.0]}", flush=True)
+    if errors or missed:
+        raise AssertionError(f"{LM_FUSION}: errors {errors}; misses the record's right clips "
+                             f"{missed}")
+
+    def clips_run(name, exp, runtimes):
+        lattice: list[float] = []
+        with timed_calls(rerank, "score_token_lists", lattice):
+            res, launches, fw = counted(torch, kernels, runtimes, lambda: run_experiment(
+                name, exp, clip_samples, corpus_dir))
+        errors = [d for d in res["dispositions"] if d["status"] == "error"]
+        lat = sorted(lattice)
+        print(f"  {name:28s} N={res['total']} recall {res['recall']:.4f} seq_acc "
+              f"{res['sequence_accuracy']:.4f} p50 {res['p50_latency'] * 1e3:.2f} ms; lattice "
+              f"(rerank.score_token_lists) {len(lat)} calls, p50 "
+              f"{lat[len(lat) // 2] * 1e3 if lat else 0.0:.2f} ms, "
+              f"{sum(lat) * 1e3 / max(res['total'] + 1, 1):.2f} ms per clip", flush=True)
+        check_launches(name, launches, runtimes, fw)
+        if errors or res["total"] != len(CLIPS):
+            raise AssertionError(f"{name}: {len(errors)} errors, {res['total']} clips scored")
+        out[name] = (launches["int4_matmul"], launches["log_mel"])
+
+    two = get_experiment("two-stage", DEVICE)
+    stage1, stage2 = two.stages
+    clips_run("two-stage", two, [stage1.runtime, stage2.runtime])
+    pruned = get_experiment("pruned-ctc", DEVICE)
+    for variant in pruned.list_models():
+        pruned.set_model(variant)
+        clips_run(f"pruned-ctc/{variant}", pruned, [pruned.runtime])
+
+    from tilawa_tpu_torch.eval.experiments import _heldout_checkpoint
+
+    if _heldout_checkpoint() is None:
+        try:
+            get_experiment("heldout", DEVICE)
+        except FileNotFoundError as e:
+            print(f"  heldout: raises FileNotFoundError here ({e}); not run", flush=True)
+        else:
+            raise AssertionError("heldout built a model without its bundle")
+    else:
+        print(f"  heldout: its bundle {_heldout_checkpoint()} is in this copy; not run",
+              flush=True)
+    return out
+
+
+def harnesses(torch, np, kernels, runtime, validate_streaming, load_audio, manifest,
+              eval_res: dict, stream_res: dict, tmp: Path) -> dict:
+    """The diagnostic harnesses: the context sweep over CLIPS on the
+    champion (11·L + 2 int4 and one log-mel launch a forward; every row of
+    a sweep's batched forward bitwise equal to the same row forwarded alone
+    at the same bucket), run_stability of MAIN_EXPERIMENT (no flaky sample,
+    every clip a stable pass), tracker_oracle over v1 (no kernel launched),
+    and analyze / compare over this run's eval and streaming results.
+    Returns {path: (int4 launches, log-mel launches)}."""
+    from tilawa_tpu_torch.data.quran import QuranDB
+    from tilawa_tpu_torch.data.token_store import TokenStore
+    from tilawa_tpu_torch.data.tokenizer import SentencePieceBPE
+    from tilawa_tpu_torch.device import upload
+    from tilawa_tpu_torch.eval import context_sweep, tracker_oracle
+    from tilawa_tpu_torch.eval.analyze import analyze_results
+    from tilawa_tpu_torch.eval.compare import compare_results
+    from tilawa_tpu_torch.eval.stability import run_stability
+    from tilawa_tpu_torch.pipeline.runtime import bucket_length
+
+    ids = {manifest[c]["id"] for c in CLIPS}
+    out = {}
+    sweep, launches, fw = counted(torch, kernels, [runtime], lambda: context_sweep.run_sweep(
+        runtime, ids=ids, verbose=False))
+    check_launches("context sweep", launches, [runtime], fw)
+    out["context-sweep"] = (launches["int4_matmul"], launches["log_mel"])
+    for table, rows in sweep.items():
+        print(f"  {table}: " + ", ".join(f"{k} {v['value']} (n={v['n']})" for k, v in rows.items()),
+              flush=True)
+    rows_checked, own_bucket_same, own_bucket_rows = 0, 0, 0
+    for clip in CLIPS:
+        keys, pieces = context_sweep.sweep_pieces(load_audio(CORPUS / clip))
+        lps, t_valids = runtime.log_probs_batch(pieces)
+        n_pad = bucket_length(max(len(p) for p in pieces))
+        for i, piece in enumerate(pieces):
+            alone = np.zeros((1, n_pad), np.float32)
+            alone[0, : len(piece)] = piece
+            lp1, t1 = runtime._apply(upload(alone, runtime.device),
+                                     upload(np.array([len(piece)], np.int32), runtime.device))
+            lp1, t = lp1[0].cpu().numpy(), int(t_valids[i])
+            if int(t1[0]) != t or not np.array_equal(lps[i, :t].view(np.int32),
+                                                     lp1[:t].view(np.int32)):
+                raise AssertionError(f"context sweep {clip} row {keys[i]}: B={len(pieces)} row "
+                                     f"differs from the row alone at N={n_pad}")
+            rows_checked += 1
+            if n_pad != bucket_length(len(piece)):
+                own, t_own = runtime.log_probs(piece)
+                own_bucket_rows += 1
+                own_bucket_same += (t_own == t and np.array_equal(
+                    own[:t].argmax(-1), lps[i, :t].argmax(-1)))
+    print(f"  context sweep: {rows_checked} rows of {len(CLIPS)} batched forwards (B "
+          f"{sorted({b for b, _n, _t in sweep_shapes()})}) bitwise equal to each row forwarded "
+          f"alone at the same bucket; at the row's own smaller bucket {own_bucket_same} of "
+          f"{own_bucket_rows} give the same greedy ids", flush=True)
+
+    report, launches, fw = counted(torch, kernels, [], lambda: run_stability(
+        MAIN_EXPERIMENT, repeats=STABILITY_REPEATS, ids=ids, device=DEVICE))
+    out["stability"] = (launches["int4_matmul"], launches["log_mel"])
+    print(f"  stability {MAIN_EXPERIMENT} x{STABILITY_REPEATS} over {report['samples']} clips: "
+          f"stable_pass {report['stable_pass']}, flaky {report['flaky']}, stable_fail "
+          f"{report['stable_fail']}, median seq_acc {report['median_seq_acc']:.4f}; launches "
+          f"{launches}", flush=True)
+    if report["flaky"] or report["stable_pass"] != len(CLIPS):
+        raise AssertionError(f"stability: {report['per_sample']}")
+
+    def oracle_replay():
+        return validate_streaming.run_validation(
+            None, db=QuranDB(), token_store=TokenStore.load_default(), verbose=False,
+            transcribe_factory=tracker_oracle.make_factory("v1", SentencePieceBPE.load_default()),
+            name="tracker-oracle-drop")
+
+    t = time.perf_counter()
+    ceiling, launches, _fw = counted(torch, kernels, [], oracle_replay)
+    print(f"  tracker_oracle (no model, host only) over v1: policy ceiling seq_acc "
+          f"{ceiling['sequence_accuracy']:.4f}, viterbi {ceiling['viterbi_sequence_accuracy']:.4f}, "
+          f"recall {ceiling['recall']:.4f} over {ceiling['total']} clips ({ceiling['skipped']} "
+          f"skipped) in {time.perf_counter() - t:.1f} s; launches {launches}", flush=True)
+    if ceiling["total"] == 0 or any(launches.values()):
+        raise AssertionError("tracker_oracle replayed no clip or launched a kernel")
+
+    files = {}
+    for name, res in (("eval", eval_res), ("streaming", stream_res)):
+        files[name] = tmp / f"{name}.json"
+        files[name].write_text(json.dumps([res], default=str))
+    loaded = {k: json.loads(v.read_text()) for k, v in files.items()}
+    tax = {name: analyze_results(data) for name, data in loaded.items()}
+    for name, t in tax.items():
+        print(f"  analyze {name}: {t['total']} samples {t['counts']}", flush=True)
+    cmp = compare_results(loaded["eval"], loaded["streaming"])
+    print(f"  compare eval vs streaming: {cmp['common_samples']} common samples {cmp['counts']}; "
+          f"streaming_loss {cmp['classes']['streaming_loss']}", flush=True)
+    # the eval phase is exact on every clip, so every streaming miss is a streaming loss
+    common = {r["id"] for r in eval_res["per_sample"]} & {r["id"] for r in stream_res["per_sample"]}
+    stream_misses = {f["id"] for f in tax["streaming"]["failures"]} & common
+    if tax["eval"]["counts"] != {"exact": eval_res["total"]} \
+            or cmp["common_samples"] != len(common) \
+            or set(cmp["classes"]["streaming_loss"]) != stream_misses:
+        raise AssertionError("analyze/compare disagree with this run's eval and streaming rows")
+    return out
+
+
 def _flat_leaves(tree: dict, prefix: tuple = ()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -1915,6 +2259,12 @@ def run() -> int:
         stream_launches = streaming(torch, kernels, rerank, validate_streaming, stream_rec)
         entries[2]["launches"] = stream_launches["int8_matmul"]
 
+    with phase("streaming corpus"):
+        stream_res, corpus_launches = streaming_corpus(torch, kernels, validate_streaming,
+                                                       stream_rec)
+        entries[2]["path_launches"] = {"streaming corpus": corpus_launches["int8_matmul"]}
+        entries[1]["path_launches"] = {"streaming corpus": corpus_launches["log_mel"]}
+
     with phase("cache"):
         worst = cache_check(np, load_audio, stream_rt, StreamingEncoderCache)
         batch_variance(torch, np, stream_rt, frontend, load_audio(CORPUS / "long_033_056.wav"))
@@ -1943,6 +2293,16 @@ def run() -> int:
             entries[0]["train_launches"] = distilled["int4_launches"]
         with phase("export"):
             export_phase(torch, kernels, trained["checkpoint"], Path(tmp) / "bundle", manifest)
+
+        with phase("families"):
+            paths = families(torch, kernels, rerank, get_experiment, load_manifest,
+                             run_experiment)
+        with phase("harnesses"):
+            paths.update(harnesses(torch, np, kernels, runtime, validate_streaming, load_audio,
+                                   manifest, eval_res, stream_res, Path(tmp)))
+        entries[0].setdefault("path_launches", {}).update(
+            {path: int4 for path, (int4, _mel) in paths.items()})
+        entries[1]["path_launches"].update({path: mel for path, (_int4, mel) in paths.items()})
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

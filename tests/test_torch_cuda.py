@@ -479,3 +479,56 @@ def test_wrappers_raise_on_inputs_that_need_a_gradient(cuda):
             assert call().grad_fn is None
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"int4_matmul": 2, "log_mel": 1, "int8_matmul": 2}
+
+
+@pytest.mark.parametrize("keep", [12, 8, 6])
+def test_pruned_forward_launches(cuda, keep):
+    """A forward of champion-int4 pruned to `keep` blocks (evenly spaced)
+    launches 11·keep + 2 int4 kernels (11 a block, the projection and the
+    CTC head) and one log-mel; its collapsed ids equal the plain ops' on
+    the card."""
+    from tilawa_tpu_torch.data.audio import load_audio
+    from tilawa_tpu_torch.eval.experiments import _pruned_runtime
+    from tilawa_tpu_torch.ops.ctc import collapse_ctc
+
+    runtime = _pruned_runtime(keep, "evenly_spaced", cuda)
+    audio = load_audio(Path(__file__).resolve().parent.parent / "benchmark" / "test_corpus"
+                       / "retasy_003.wav")
+    runtime.forward(audio)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    _lp, ids, t = runtime.forward(audio)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"int4_matmul": 11 * keep + 2, "log_mel": 1, "int8_matmul": 0}
+    from tilawa_tpu_torch.pipeline.runtime import EncoderRuntime
+
+    plain = EncoderRuntime(dataclasses.replace(runtime.config, use_pallas=False),
+                           runtime.variables, cuda)
+    _lp, ids_p, t_p = plain.forward(audio)
+    assert t == t_p and collapse_ctc(ids, 1024) == collapse_ctc(ids_p, 1024)
+
+
+def test_context_sweep_rows_equal_single_forwards(champion_cuda):
+    """Each row of the context sweep's batched forward (the prefix cuts and
+    the clip, B = 3-6 rows at the clip's bucket) is bitwise the same row
+    forwarded alone at that bucket, so its greedy ids are too."""
+    from tilawa_tpu_torch.data.audio import load_audio
+    from tilawa_tpu_torch.device import upload
+    from tilawa_tpu_torch.eval.context_sweep import sweep_pieces
+    from tilawa_tpu_torch.pipeline.runtime import bucket_length
+
+    corpus = Path(__file__).resolve().parent.parent / "benchmark" / "test_corpus"
+    dev = torch.device("cuda")
+    for clip in ("retasy_000.wav", "retasy_016.wav", "retasy_024.wav", "long_033_056.wav"):
+        _keys, pieces = sweep_pieces(load_audio(corpus / clip))
+        lps, t_valids = champion_cuda.log_probs_batch(pieces)
+        n_pad = bucket_length(max(len(p) for p in pieces))
+        for i, piece in enumerate(pieces):
+            alone = np.zeros((1, n_pad), np.float32)
+            alone[0, : len(piece)] = piece
+            lp1, t1 = champion_cuda._apply(upload(alone, dev),
+                                           upload(np.array([len(piece)], np.int32), dev))
+            t = int(t_valids[i])
+            assert int(t1[0]) == t
+            np.testing.assert_array_equal(lps[i, :t].view(np.int32),
+                                          lp1[0, :t].cpu().numpy().view(np.int32))

@@ -30,7 +30,8 @@ REPO = EXPORTS_DIR.parent
 CORPUS = REPO / "benchmark" / "test_corpus"
 PORTED = (
     "c2c-direct", "c2c-direct-mixed", "c2c-direct-mixed-tta", "c2c-direct-tta",
-    "ctc-alignment", "fastconformer-zeroshot", "oracle", "oracle-hard",
+    "ctc-alignment", "fastconformer-quran-lm-fusion", "fastconformer-zeroshot", "heldout",
+    "oracle", "oracle-hard", "pruned-ctc", "two-stage",
 )
 KEY = ("surah", "ayah", "ayah_end")
 MODES = ("gated", "always", "never")
@@ -279,7 +280,9 @@ def test_results_dir_is_the_ports_own(monkeypatch):
 
 def test_runner_list(capsys):
     trunner.main(["--list"])
-    assert capsys.readouterr().out.split() == sorted(PORTED)
+    variants = [f"pruned-ctc/{m}" for m in sorted(texp.PrunedCTCExperiment.VARIANTS)]
+    assert capsys.readouterr().out.split() == sorted(
+        [n for n in PORTED if n != "pruned-ctc"] + variants)
 
 
 def test_runner_cli_oracle_on_cpu(capsys):

@@ -16,14 +16,20 @@ counterpart of `tilawa_tpu/data/quran.py` is `tilawa_tpu_torch/data/quran.py`).
   streaming — recitation tracker and session, verse tracker and
               StreamingPipeline (copied), micro-batch dispatcher,
               WebSocket server
-  eval      — experiment registry and runtime loading, the runner, the
-              batched corpus eval, metrics, the streaming validation
-              replay, the WS endpoint bench
+  eval      — experiment registry (the champion modes, LM fusion,
+              pruned-ctc, two-stage, heldout, oracles) and runtime loading,
+              the runner, the batched corpus eval, metrics, the streaming
+              validation replay, the WS endpoint bench, and the diagnostic
+              harnesses: context sweep, stability, run_single, tracker
+              oracle, analyze, compare, hypothesis sweep
   train     — the training path: CTC fine-tune (train, finetune), the
               checkpoint reader/writer, data and forced alignment (numpy
               copies), int4/int8 quantization and its inverse, export with
-              the sha256 contract, self-distillation, the corpus-fit report
-  data/text — host code copied from the JAX package
+              the sha256 contract, self-distillation, the corpus-fit
+              report, depth pruning
+  data/text — host code copied from the JAX package (with the word n-gram
+              LM and the token trie); ops/beam.py and utils/profiling.py
+              are copies too
 
 Entry points, on the card unless --device cpu (or device="cpu") is passed:
 
@@ -36,6 +42,14 @@ Entry points, on the card unless --device cpu (or device="cpu") is passed:
   python -m tilawa_tpu_torch.train.finetune        the champion fine-tune recipe
   python -m tilawa_tpu_torch.train.distill         self-distillation from champion-int4
   python -m tilawa_tpu_torch.train.export          a checkpoint → an int4 bundle
+  python -m tilawa_tpu_torch.train.prune           a checkpoint → a depth-pruned one
+  python -m tilawa_tpu_torch.eval.context_sweep    decodes of 1/2/3/5/10 s prefixes
+  python -m tilawa_tpu_torch.eval.stability        N repeats: flaky samples
+  python -m tilawa_tpu_torch.eval.run_single       one experiment's result history
+  python -m tilawa_tpu_torch.eval.tracker_oracle   the tracker's policy ceiling (host only)
+  python -m tilawa_tpu_torch.eval.analyze          failure taxonomy of a results file
+  python -m tilawa_tpu_torch.eval.compare          batch vs streaming results
+  python -m tilawa_tpu_torch.eval.hypothesis_sweep offline Viterbi parameter sweep
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,8 @@
 """Experiment registry and runtime loading for the port.
 
-Port of tilawa_tpu/eval/experiments.py:27-230, 766-773. Experiments are
-lazy factories of pipeline objects with predict()/transcribe(), built on a
-device (the card unless the caller passes device="cpu") and cached per
-(name, device):
+Port of tilawa_tpu/eval/experiments.py. Experiments are lazy factories of
+pipeline objects with predict()/transcribe(), built on a device (the card
+unless the caller passes device="cpu") and cached per (name, device):
 
   c2c-direct              the shipped checkpoint as it is, gated rerank
   c2c-direct-tta          + confidence-gated 0.9x/1.1x TTA
@@ -11,14 +10,25 @@ device (the card unless the caller passes device="cpu") and cached per
   c2c-direct-mixed-tta    the champion: int4, gated rerank, TTA
   fastconformer-zeroshot  greedy decode + text match, never a CTC rerank
   ctc-alignment           CTC rerank of every candidate
+  fastconformer-quran-lm-fusion
+                          the champion's candidates rescored by a word
+                          5-gram LM (text/ngram.py; alpha 0.7, beta 1.0)
+  pruned-ctc              the shipped checkpoint pruned to 12/8/6 blocks
+                          (first_n or evenly_spaced; list_models/set_model)
+  two-stage               a 12-block prune transcribes, the full model
+                          CTC-reranks every clip's candidates
+  heldout                 the champion pipeline on exports/heldout-int4
+                          (or TILAWA_HELDOUT_CKPT), with TTA
   oracle / oracle-hard    the decision stack over log-probs rendered from
                           the manifest's ground truth (no audio decoded)
 
 load_runtime(path) puts any bundle (exports/stream6-int8 for streaming)
 on an EncoderRuntime; load_champion() is the shipped checkpoint,
-exports/champion-int4 unless TILAWA_CHECKPOINT names another. The other
-experiment families (phoneme, LM fusion, pruned, two-stage, heldout) are
-queued in ROADMAP A.4.
+exports/champion-int4 unless TILAWA_CHECKPOINT names another. Where the
+JAX package builds a random-init model for want of a checkpoint (the
+runtime loaders, pruned-ctc, two-stage), the port raises
+FileNotFoundError. The phoneme family (fastconformer-phoneme) is not
+ported yet (ROADMAP A.4).
 """
 
 from __future__ import annotations
@@ -31,7 +41,12 @@ from pathlib import Path
 import torch
 
 from tilawa_tpu_torch.device import resolve_device
-from tilawa_tpu_torch.io.bundle import load_variables, shipped_checkpoint
+from tilawa_tpu_torch.io.bundle import (
+    CHECKPOINT_DIR,
+    EXPORTS_DIR,
+    load_variables,
+    shipped_checkpoint,
+)
 from tilawa_tpu_torch.pipeline.runtime import EncoderRuntime
 
 _REGISTRY: dict[str, callable] = {}
@@ -241,6 +256,191 @@ class OracleExperiment:
         return 0
 
 
+class LMFusionExperiment(OracleExperiment):
+    """Champion stack + n-gram shallow-fusion rescoring of the candidate
+    list (reference: experiments/fastconformer-quran-lm-fusion/run.py —
+    KenLM alpha 0.7 / beta 1.0; the LM is text/ngram.py over the same
+    corpus asset). With a shipped checkpoint the base predictions come from
+    the real champion (acoustics "real"); without one, from the synthetic
+    oracle stack, labelled acoustics "oracle", as in the JAX package."""
+
+    def __init__(self, alpha: float = 0.7, beta: float = 1.0,
+                 device: str | torch.device = "cuda", **kw):
+        super().__init__(device=device, **kw)
+        from tilawa_tpu_torch.text.ngram import NGramLM
+
+        self.lm = NGramLM.from_corpus_file(order=5)
+        self.alpha, self.beta = alpha, beta
+        # the champion Recognizer behind the base predictions (None: oracle)
+        self.real = None
+        if shipped_checkpoint() is not None:
+            self.real = _make_recognizer(tta=False, device=device)
+            self.acoustics = "real"
+
+    def transcribe(self, path: str) -> str:
+        if self.real is not None:
+            return self.real.transcribe(path)
+        return super().transcribe(path)
+
+    def model_size(self) -> int:
+        return self.real.model_size() if self.real is not None else 0
+
+    def predict(self, path: str) -> dict:
+        from tilawa_tpu_torch.text.ngram import lm_rescore
+
+        result = self.real.predict(path) if self.real is not None else super().predict(path)
+        cands = result.get("candidates") or []
+        if len(cands) > 1:
+            texts = [
+                {**c, "text": self.db.span_text(
+                    c["surah"], c["ayah"], c.get("ayah_end") or c["ayah"]) or ""}
+                for c in cands
+            ]
+            fused = lm_rescore(texts, self.lm, self.alpha, self.beta)
+            best = fused[0]
+            result = {
+                **result,
+                "surah": best["surah"],
+                "ayah": best["ayah"],
+                "ayah_end": best.get("ayah_end") or best["ayah"],
+                "candidates": fused[:5],
+            }
+        return result
+
+
+def _pruned_runtime(keep: int, mode: str, device) -> EncoderRuntime:
+    """The shipped checkpoint pruned to `keep` blocks on `device`."""
+    from tilawa_tpu_torch.train.prune import prune_layers
+
+    config, variables, _label = load_shipped()
+    config, variables = prune_layers(config, variables, keep, mode)
+    return EncoderRuntime(config, variables, device=device)
+
+
+class PrunedCTCExperiment:
+    """Depth-pruned encoder variants behind the reference's list_models()
+    multi-variant contract (reference: experiments/rabah-pruned-ctc/run.py
+    list_models() over 12/8/6-layer first_n / evenly_spaced prunes;
+    benchmark/runner.py:162-190 expands them). A variant is pruned from the
+    shipped checkpoint when it is first used."""
+
+    VARIANTS = {
+        f"L{keep}-{mode}": (keep, mode)
+        for keep in (12, 8, 6)
+        for mode in ("first_n", "evenly_spaced")
+    }
+
+    def __init__(self, device: str | torch.device = "cuda"):
+        self.device = device
+        self._recognizers: dict[str, object] = {}
+        self._current = "L12-evenly_spaced"
+
+    def list_models(self) -> list[str]:
+        return sorted(self.VARIANTS)
+
+    def set_model(self, name: str) -> None:
+        if name not in self.VARIANTS:
+            raise KeyError(f"unknown model {name!r}; have {self.list_models()}")
+        self._current = name
+
+    def _recognizer(self):
+        name = self._current
+        if name not in self._recognizers:
+            from tilawa_tpu_torch.pipeline.predict import Recognizer
+
+            self._recognizers[name] = Recognizer(
+                _pruned_runtime(*self.VARIANTS[name], resolve_device(self.device)))
+        return self._recognizers[name]
+
+    @property
+    def runtime(self) -> EncoderRuntime:
+        return self._recognizer().runtime
+
+    def predict(self, path: str) -> dict:
+        return self._recognizer().predict(path)
+
+    def transcribe(self, path: str) -> str:
+        return self._recognizer().transcribe(path)
+
+    def model_size(self) -> int:
+        return self._recognizer().model_size()
+
+
+class TwoStageExperiment:
+    """Two-stage ASR → CTC-rescore pipeline (reference: experiments/two-stage/
+    run.py and two-stage-faster-whisper-pruned/run.py — a cheap generic ASR
+    produces the transcript that drives candidate retrieval, then a separate
+    CTC model rescores the candidates acoustically).
+
+    Stage 1 transcribes with a depth-pruned encoder: TILAWA_STAGE1_CHECKPOINT
+    or exports/pruned-L{stage1_layers} when present, else the shipped
+    checkpoint pruned to stage1_layers blocks, evenly spaced. Stage 2 builds
+    candidates from that transcript and CTC-reranks them against the full
+    champion's log-probs with the gate off (rerank_mode="always")."""
+
+    def __init__(self, stage1_layers: int = 12, device: str | torch.device = "cuda"):
+        self.stage1_layers = stage1_layers
+        self.device = device
+        self._stage1 = None
+        self._stage2 = None
+
+    def _build(self):
+        if self._stage2 is not None:
+            return
+        from tilawa_tpu_torch.pipeline.predict import Recognizer
+
+        device = resolve_device(self.device)
+        ft = Path(os.getenv("TILAWA_STAGE1_CHECKPOINT",
+                            str(EXPORTS_DIR / f"pruned-L{self.stage1_layers}")))
+        if ft.exists():
+            config, variables = load_variables(ft)
+            stage1 = EncoderRuntime(config, variables, device=device)
+        else:
+            stage1 = _pruned_runtime(self.stage1_layers, "evenly_spaced", device)
+        self._stage1 = Recognizer(stage1)
+        self._stage2 = _make_recognizer(tta=False, rerank_mode="always", device=device)
+
+    @property
+    def stages(self) -> tuple:
+        """(stage-1 Recognizer, stage-2 Recognizer), built on first use."""
+        self._build()
+        return self._stage1, self._stage2
+
+    def predict(self, path: str) -> dict:
+        from tilawa_tpu_torch.data.audio import load_audio
+
+        self._build()
+        audio = load_audio(path)
+        transcript = self._stage1.transcribe_audio(audio)
+        lp, _ids, t_valid = self._stage2.runtime.forward(audio)
+        result = self._stage2._predict_from_logprobs(lp, t_valid, transcript)
+        result["stage1_transcript"] = transcript
+        return result
+
+    def transcribe(self, path: str) -> str:
+        self._build()
+        return self._stage1.transcribe(path)
+
+    def model_size(self) -> int:
+        self._build()
+        return self._stage1.model_size() + self._stage2.model_size()
+
+
+@register("two-stage")
+def _two_stage(device):
+    return TwoStageExperiment(device=device)
+
+
+@register("pruned-ctc")
+def _pruned_ctc(device):
+    return PrunedCTCExperiment(device=device)
+
+
+@register("fastconformer-quran-lm-fusion")
+def _lm_fusion(device):
+    return LMFusionExperiment(error_rate=0.10, noise=1.0, device=device)
+
+
 @register("oracle")
 def _oracle(device):
     return OracleExperiment(error_rate=0.0, noise=0.3, device=device)
@@ -249,3 +449,36 @@ def _oracle(device):
 @register("oracle-hard")
 def _oracle_hard(device):
     return OracleExperiment(error_rate=0.10, noise=1.0, device=device)
+
+
+def _heldout_checkpoint() -> Path | None:
+    """Newest artifact of the held-out campaign: TILAWA_HELDOUT_CKPT, else
+    exports/heldout-int4 if exported, else the highest-step checkpoint of
+    the newest campaign phase (checkpoints/heldout2, then heldout)."""
+    env = os.getenv("TILAWA_HELDOUT_CKPT")
+    if env:
+        return Path(env)
+    export = EXPORTS_DIR / "heldout-int4"
+    if (export / "variables.msgpack").exists():
+        return export
+    for run in ("heldout2", "heldout"):
+        steps = sorted((CHECKPOINT_DIR / run).glob("step_*"))
+        if steps:
+            return steps[-1]
+    return None
+
+
+@register("heldout")
+def _heldout(device):
+    """Champion pipeline on the held-out model: trained from scratch on
+    v2+v3 audio only, so its v1 score is the generalization-honest one
+    (the shipped champion declares train==test overlap)."""
+    from tilawa_tpu_torch.pipeline.predict import Recognizer
+
+    ckpt = _heldout_checkpoint()
+    if ckpt is None:
+        raise FileNotFoundError(
+            "no held-out artifact (exports/heldout-int4 or TILAWA_HELDOUT_CKPT)"
+        )
+    config, variables = load_variables(ckpt)
+    return Recognizer(EncoderRuntime(config, variables, device=resolve_device(device)), tta=True)

@@ -307,8 +307,15 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     if args.list:
+        # Multi-variant experiments print one line per list_models() entry
+        # (reference: runner.py:162-190); pruned-ctc builds no model for it.
         for name in list_experiments():
-            print(name)
+            exp = get_experiment(name, device=args.device) if name == "pruned-ctc" else None
+            if exp is not None and hasattr(exp, "list_models"):
+                for m in exp.list_models():
+                    print(f"{name}/{m}")
+            else:
+                print(name)
         return
 
     samples, corpus_dir = load_manifest(args.corpus)
