@@ -2,6 +2,9 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root, one card
+    python3 chip_smoke.py --bundles phoneme-heldout
+                                 # from a copy holding exports/phoneme-int8 and
+                                 # exports/heldout-int4 (see the end of this text)
 
 Phases (each prints its elapsed seconds; any failure exits non-zero
 without the final line):
@@ -60,10 +63,10 @@ without the final line):
                  replay and read just after
   11. streaming  every decodable v1 clip (N >= 37) through validate_streaming
       corpus     on stream6-int8 in 300 ms chunks (counters zeroed just
-                 before, read just after): each clip's emissions and final
-                 sequence against the JAX package's recorded run; the
-                 STREAM_IDS at sequence accuracy 1.0; 189 int8 + 1 log-mel a
-                 forward
+                 before, read just after): each clip's final sequence equal
+                 to the JAX package's live replay (eval/refs/streaming_v1.json;
+                 the 2026-08-21 record printed beside it); the STREAM_IDS at
+                 sequence accuracy 1.0; 189 int8 + 1 log-mel a forward
   12. cache      StreamingEncoderCache on a window over 16 s, cold and
                  with its tail grown by 1 s, against forward_long (ids,
                  t_valid, log-probs), and the ops whose row 0 changes with
@@ -117,15 +120,46 @@ without the final line):
                  champion experiment (3 repeats: no flaky sample),
                  tracker_oracle over v1 (host only, no launch; its policy
                  ceiling), analyze and compare over this run's eval and
-                 streaming corpus rows
+                 streaming corpus rows; the sweep rows whose greedy ids move
+                 at the row's own smaller bucket are named
+  21. phoneme    fastconformer-phoneme on oracle acoustics (host renders from
+      oracle     seed 0) through the runner over every v1 manifest row, the
+                 CTC rerank off and on (its lattice on the card, timed):
+                 decisions equal to the JAX package's (eval/refs/phoneme_v1.json),
+                 rows labelled acoustics "oracle", no kernel launched
+  22. phoneme    train.phoneme at full width from the dequantized
+      train      champion-int4 with a fresh 70-class head, PHONEME_TRAIN_STEPS
+                 steps in a temporary directory: finite losses, one log-mel
+                 launch a step, the sync census of "train"; the head is
+                 [512, 70] lecun normal, bias 0; the checkpoint loads in
+                 EncoderRuntime and gives [T, 70] log-probs
+
+--bundles phoneme-heldout replaces phases 4-22 (it fails at once if either
+bundle is absent) with three phases:
+  phoneme bundle   one phoneme-int8 forward (189 int8 + 1 log-mel launches, 70
+                   classes); the runner over every decodable v1 clip, rerank
+                   off and on: verses equal to the JAX package's live run
+                   (eval/refs/phoneme_v1.json) but for named near ties, 189
+                   int8 + 1 log-mel a forward
+  heldout bundle   heldout-int4 with TTA through the runner: verses equal to
+                   the JAX package's live run (eval/refs/heldout_v1.json) but
+                   for named near ties, and to the 2026-08-21 record but where
+                   a near tie or today's JAX run differs from it; 189 int4 +
+                   1 log-mel a forward
+  phoneme          train.phoneme --init exports/phoneme-int8, CONTINUE_STEPS
+  continuation     steps: its trained head kept, as in 22
+Its last lines: {"bundles": ...}, nvidia-smi's line, the kernels line and
+the ok line.
 
 The last four lines: one JSON object {"train": {...}} (step ms, audio-s/s,
 peak bytes, training MFU, distill step ms, the kernel-vs-plain deltas, the
 card and its power limit), nvidia-smi's name and power limit, one JSON
 object with every kernel's numbers (`launches`: the eval phase's run;
 `train_launches`: the train phase's log-mel and the distill teacher's
-int4; `path_launches`: one entry per path of phases 11, 19 and 20), and
-{"ok": true, "device": {...}}.
+int4; `path_launches`: one entry per path of phases 11, 19, 20 and 22; the
+int8 entry's `phoneme_head`: the (512, 70) head's times per M), and
+{"ok": true, "device": {...}}. A line before them says that the bundle
+section runs under --bundles.
 Imports nothing of JAX, flax, msgpack or tilawa_tpu.
 """
 
@@ -172,10 +206,26 @@ JAX_RECORDED_RUN = ROOT / "benchmark" / "results" / "2026-08-21_095830.json"
 # of the 37 wav clips): every clip it gets right must be right on the port
 JAX_LM_FUSION_RUN = ROOT / "benchmark" / "results" / "2026-08-21_142224.json"
 LM_FUSION = "fastconformer-quran-lm-fusion"
-# ... of the tracker on stream6-int8 over v1 in 300 ms chunks (per-clip emissions and
-# final_sequence; exactly right on 25 of the 37 wav clips): compared, not gated
+# ... of the tracker on stream6-int8 over v1 in 300 ms chunks: it predates the
+# tracker's current Viterbi, so it is printed beside the gate, which holds the
+# replay to the JAX package's live replay (tilawa_tpu_torch/eval/jax_refs.py)
 JAX_STREAM_RUN = ROOT / "benchmark" / "results" / "2026-08-21_204047.json"
+# ... of heldout over v1 (TTA; right on 2 of 44, both m4a): printed beside the gate,
+# which holds the card to the JAX package's live run (jax_refs.HELDOUT_REF)
+JAX_HELDOUT_RUN = ROOT / "benchmark" / "results" / "2026-08-21_140720.json"
+# ... of fastconformer-phoneme on phoneme-int8 over v1 (seq-acc 0.7273): printed
+# beside the gate, which holds the card to jax_refs.PHONEME_REF
+JAX_PHONEME_RUN = ROOT / "benchmark" / "results" / "2026-08-21_222020.json"
 STABILITY_REPEATS = 3
+PHONEME = "fastconformer-phoneme"
+PHONEME_BUNDLE = ROOT / "exports" / "phoneme-int8"
+HELDOUT_BUNDLE = ROOT / "exports" / "heldout-int4"
+# --bundles NAME: the section run from a copy of the repository that holds
+# these bundles in place of champion-int4 and stream6-int8
+BUNDLE_SECTIONS = {"phoneme-heldout": (PHONEME_BUNDLE, HELDOUT_BUNDLE)}
+PHONEME_TRAIN_STEPS = 6     # train.phoneme's swap-head path from champion-int4
+CONTINUE_STEPS = 3          # train.phoneme --init exports/phoneme-int8 (continuation)
+HEAD_STD_BAND = 0.03        # |std of the fresh head / (1/sqrt(512)) - 1| (512 x 70 draws)
 BENCH_BUDGET_S = 300
 WS_CLIENTS = 2
 CHAMPION = ROOT / "exports" / "champion-int4"
@@ -285,6 +335,18 @@ M_MAIN = 50          # encoder frames of the 64000-sample (4 s) bucket
 # encoder frames of the audio buckets the main and streaming paths reach:
 # 4, 8, 16 and 32 s (clips and windows up to 30 s; 25 s transcribe windows)
 PATH_T = (50, 100, 200, 400)
+
+
+# The phoneme runner forwards whole clips at their bucket (no long chunking):
+# PATH_T and the 41 s clip's 1,024,000 samples; its CTC head is (512, 70).
+PHONEME_T = (*PATH_T, 800)
+PHONEME_HEAD = ("phoneme_head", 512, 70, 1)
+
+
+def int8_ms(name: str) -> tuple[int, ...]:
+    """The rows M an int8 product runs at: stream6-int8's windows and the
+    phoneme bundle's clips, B = 1 (pos at 2T-1)."""
+    return tuple(2 * t - 1 for t in PHONEME_T) if name == "pos" else PHONEME_T
 
 
 # The batched corpus eval: B=8 rows at the encoder frames of the 64000 …
@@ -575,17 +637,21 @@ def check_int4(torch, np, quant, flush) -> dict:
 
 
 def check_int8(torch, np, quant, flush) -> dict:
-    """Both orders of scaling at every product of the streaming forward,
-    rows bitwise independent of M. The JSON entry carries Int8Dense's order
-    with the bias fused where the layer has one (what the path launches);
-    the _int8_kernel order's numbers ride beside it under scale_in_w_*."""
+    """Both orders of scaling at every product of the streaming and phoneme
+    forwards (stream6-int8's 189 and phoneme-int8's (512, 70) head) at every
+    M they launch, rows bitwise independent of M. The JSON entry carries
+    Int8Dense's order with the bias fused where the layer has one (what the
+    path launches), per stream6-int8 forward at M_MAIN; the _int8_kernel
+    order's numbers ride beside it under scale_in_w_*, the phoneme head's
+    per M under phoneme_head."""
     rng = np.random.default_rng(SEED + 2)
     dev = torch.device(DEVICE)
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     totals = {order: dict.fromkeys(keys, 0.0) for order in ("after", "in_w")}
     max_err = {"after": 0.0, "in_w": 0.0}
     flips, elems, bias_flips, bias_elems, bound_by = 0, 0, 0, 0, set()
-    for name, k, n, count in INT4_SHAPES:
+    head: dict[int, dict] = {}
+    for name, k, n, count in (*INT4_SHAPES, PHONEME_HEAD):
         q, scales = quant.quantize_int8(
             (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32))
         q, scales = torch.from_numpy(q).to(dev), torch.from_numpy(scales).to(dev)
@@ -596,12 +662,12 @@ def check_int8(torch, np, quant, flush) -> dict:
         w_bf16 = w_f32.to(torch.bfloat16)
 
         x_all = torch.from_numpy(
-            rng.standard_normal((max(path_ms(name)), k)).astype(np.float32)).to(dev)
+            rng.standard_normal((max(int8_ms(name)), k)).astype(np.float32)).to(dev)
         x_all = x_all.to(torch.bfloat16)
         for what, fn in (("int8_matmul", lambda x: quant.int8_matmul(x, q, scales)),
                          ("int8_dense", lambda x: quant.int8_dense(x, q, scales, bias))):
-            check_rows(torch, f"{what} {name}", fn, x_all, (1, *path_ms(name)))
-        for m in path_ms(name):
+            check_rows(torch, f"{what} {name}", fn, x_all, (1, *int8_ms(name)))
+        for m in int8_ms(name):
             x = x_all[:m]
             # scale in W: f32 out, held like int4
             out = quant.int8_matmul(x, q, scales)
@@ -658,7 +724,10 @@ def check_int8(torch, np, quant, flush) -> dict:
                 plain = time_cuda(torch, plain_fn, flush)
                 bound, by = int8_bound_ms(m, k, n, out_bytes, with_bias)
                 line.append(f"{order}: kernel {ms:.4f} plain {plain:.4f} bound {bound:.5f} ({by})")
-                if m == (2 * M_MAIN - 1 if name == "pos" else M_MAIN):
+                if name == PHONEME_HEAD[0] and order == "after":
+                    head[m] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                               "bound_ms": bound, "bound_by": by}
+                elif name != PHONEME_HEAD[0] and m == (2 * M_MAIN - 1 if name == "pos" else M_MAIN):
                     for key, v in zip(keys, (ms, plain, lib, bound)):
                         totals[order][key] += count * v
                     if order == "after":
@@ -683,6 +752,7 @@ def check_int8(torch, np, quant, flush) -> dict:
         "scale_in_w_max_abs_err": max_err["in_w"],
         **{f"scale_in_w_{k}": v for k, v in totals["in_w"].items()},
         "flip_rate": flips / elems, "flip_rate_with_bias": bias_flips / bias_elems,
+        "phoneme_head": {str(m): v for m, v in head.items()},
     }
 
 
@@ -906,6 +976,68 @@ def batch_variance(torch, np, runtime, frontend, audio, rows: int = 2,
               f"(own code; e.g. {names[0][0]}; max|Δ| {worst[1]:.3g} in {worst[0]})", flush=True)
     print(f"    {len(origins)} origins, {len(varying)} of {len(deltas)} modules vary with the "
           f"batch size", flush=True)
+    return origins
+
+
+def bucket_variance(torch, runtime, piece, n_own: int, n_pad: int) -> dict[str, float]:
+    """Which modules give a clip's valid frames other values when it is
+    padded to the bucket n_pad than at n_own (the same samples): the
+    forward runs at each bucket with every module's inputs and output kept;
+    a module whose output's valid frames ([B, T, ...] tensors, the first
+    t_valid of T encoder frames) differ while its inputs' valid frames are
+    equal (inputs without that axis, such as the relative positions, are
+    not compared) is an origin. Prints and returns {module: max |Δ|}."""
+    from tilawa_tpu_torch.train.train import encoder_lengths
+
+    model = runtime.model
+    t_valid = int(encoder_lengths([len(piece)])[0])
+    runs = []
+    for n in (n_own, n_pad):
+        kept: dict = {}
+
+        def hook(name):
+            def fn(module, args, out):
+                out = out[0] if isinstance(out, tuple) else out
+                kept.setdefault(name, ([a.clone() for a in args if torch.is_tensor(a)],
+                                       out.clone() if torch.is_tensor(out) else None))
+            return fn
+
+        handles = [m.register_forward_hook(hook(name)) for name, m in model.named_modules()
+                   if name]
+        try:
+            runtime._apply_upload([piece], n, 1)
+            torch.cuda.synchronize()
+        finally:
+            for h in handles:
+                h.remove()
+        runs.append((kept, int(encoder_lengths([n])[0])))
+
+    def valid(a, frames):
+        return a[:, :t_valid] if a is not None and a.dim() >= 2 and a.shape[1] == frames else None
+
+    def differs(a, b) -> float:
+        if torch.equal(bits(torch, a), bits(torch, b)):
+            return 0.0
+        return max(float((a.float() - b.float()).abs().max()), float("1e-45"))
+
+    (own, t_own), (pad, t_pad) = runs
+    origins = {}
+    for name, (args_o, out_o) in own.items():
+        args_p, out_p = pad[name]
+        vo, vp = valid(out_o, t_own), valid(out_p, t_pad)
+        if vo is None or vp is None or not differs(vo, vp):
+            continue
+        ins = [(valid(a, t_own), valid(b, t_pad)) for a, b in zip(args_o, args_p)]
+        if all(differs(a, b) == 0.0 for a, b in ins if a is not None and b is not None):
+            origins[name] = differs(vo, vp)
+    kinds: dict[str, list] = {}
+    for name, d in origins.items():
+        kinds.setdefault(type(model.get_submodule(name)).__name__, []).append((name, d))
+    for kind, names in kinds.items():
+        worst = max(names, key=lambda r: r[1])
+        print(f"    valid frames differ with equal valid inputs in {len(names)} {kind} (e.g. "
+              f"{names[0][0]}; max|Δ| {worst[1]:.3g} in {worst[0]})", flush=True)
+    print(f"    {len(origins)} origins of {len(own)} modules", flush=True)
     return origins
 
 
@@ -1804,9 +1936,14 @@ def streaming_corpus(torch, kernels, validate_streaming, recognizer) -> tuple[di
     """Every decodable v1 clip through validate_streaming's tracker on
     stream6-int8 in 300 ms chunks (counters zeroed just before, read just
     after), each clip's emissions and final sequence against the JAX
-    package's recorded run JAX_STREAM_RUN. Gates: at least MIN_EVAL_CLIPS
-    clips, the STREAM_IDS at sequence accuracy 1.0, 189 int8 + 1 log-mel
-    launches a forward. Returns (result, launches)."""
+    package's replay of the same clips on the CPU (jax_refs.STREAM_REF,
+    written live by tests/test_torch_refs.py); the 2026-08-21 record it
+    replaces (JAX_STREAM_RUN) is printed beside it. Gates: at least
+    MIN_EVAL_CLIPS clips, the final sequence equal to the reference's on
+    every clip, the STREAM_IDS at sequence accuracy 1.0, 189 int8 + 1
+    log-mel launches a forward. Returns (result, launches)."""
+    from tilawa_tpu_torch.eval.jax_refs import STREAM_REF, load_ref
+
     runtime = recognizer.runtime
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1818,36 +1955,37 @@ def streaming_corpus(torch, kernels, validate_streaming, recognizer) -> tuple[di
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches, forwards = dict(kernels.LAUNCHES), runtime.forwards
+    ref = load_ref(STREAM_REF)
     recorded = {r["id"]: r for r in json.loads(JAX_STREAM_RUN.read_text())[0]["per_sample"]}
     ours = {r["id"]: r for r in res["per_sample"]}
     same_final = [i for i, r in ours.items()
-                  if _verses(r["final_sequence"]) == _verses(recorded[i]["final_sequence"])]
-    same_emitted = [i for i, r in ours.items()
-                    if _verses(r["predicted"]) == _verses(recorded[i]["predicted"])]
-    record_right = [i for i in ours if recorded[i]["sequence_accuracy"] == 1.0]
-    missed = [i for i in record_right if ours[i]["sequence_accuracy"] != 1.0]
-    rescued = [i for i in ours if i not in record_right and ours[i]["sequence_accuracy"] == 1.0]
+                  if _pairs(r["final_sequence"] or []) == (ref[i]["final_sequence"] or [])
+                  and (r["final_sequence"] is None) == (ref[i]["final_sequence"] is None)]
+    same_emitted = [i for i, r in ours.items() if _pairs(r["predicted"]) == ref[i]["predicted"]]
+    old_final = [i for i, r in ours.items()
+                 if _verses(r["final_sequence"]) == _verses(recorded[i]["final_sequence"])]
     for i, r in ours.items():
-        rec = recorded[i]
-        print(f"  {i:22s} seq_acc {r['sequence_accuracy']:.2f} (JAX record "
-              f"{rec['sequence_accuracy']:.2f})  final {_verses(r['final_sequence'])}"
-              + ("" if i in same_final else f" vs JAX {_verses(rec['final_sequence'])}")
+        print(f"  {i:22s} seq_acc {r['sequence_accuracy']:.2f} (JAX "
+              f"{ref[i]['sequence_accuracy']:.2f})  final {_pairs(r['final_sequence'] or [])}"
+              + ("" if i in same_final else f" vs JAX {ref[i]['final_sequence']}")
               + f"  wall {r['latency']:.2f} s", flush=True)
     print(f"  {res['total']} clips ({res['skipped']} skipped) in {wall:.1f} s: seq_acc "
           f"{res['sequence_accuracy']:.4f}, viterbi {res['viterbi_sequence_accuracy']:.4f}, "
           f"recall {res['recall']:.4f}; decode feed p50/p90 {res['decode_cycle_p50'] * 1e3:.1f}/"
           f"{res['decode_cycle_p90'] * 1e3:.1f} ms; {forwards} forwards", flush=True)
-    record_acc = sum(recorded[i]["sequence_accuracy"] for i in ours) / max(len(ours), 1)
-    print(f"  against the JAX record {JAX_STREAM_RUN.name}: final sequence equal on "
-          f"{len(same_final)} of {len(ours)} clips, emissions equal on {len(same_emitted)}; the "
-          f"record gets {len(record_right)} of them exactly right (its seq_acc on them "
-          f"{record_acc:.4f}), the port misses {len(missed)} of those {missed}, and gets "
-          f"{len(rescued)} right that the record misses {rescued}", flush=True)
+    ref_acc = sum(ref[i]["sequence_accuracy"] for i in ours) / max(len(ours), 1)
+    print(f"  against the JAX reference {STREAM_REF.name} (seq_acc {ref_acc:.4f} on these "
+          f"clips): final sequence equal on {len(same_final)} of {len(ours)}, emissions on "
+          f"{len(same_emitted)}; against the 2026-08-21 record {JAX_STREAM_RUN.name}: final "
+          f"sequence equal on {len(old_final)}", flush=True)
     wrong = [i for i in STREAM_IDS if ours.get(i, {}).get("sequence_accuracy") != 1.0]
     if wrong:
         raise AssertionError(f"streaming clips below sequence accuracy 1.0: {wrong}")
     if res["total"] < MIN_EVAL_CLIPS:
         raise AssertionError(f"only {res['total']} clips replayed (want >= {MIN_EVAL_CLIPS})")
+    differ = sorted(set(ours) - set(same_final))
+    if differ:
+        raise AssertionError(f"final sequences differ from the JAX reference on {differ}")
     if forwards == 0 or launches["int8_matmul"] != INT8_LAUNCHES_PER_FORWARD * forwards \
             or launches["log_mel"] != forwards or launches["int4_matmul"] != 0:
         raise AssertionError("the corpus replay did not run the int8 and log-mel kernels "
@@ -1856,26 +1994,31 @@ def streaming_corpus(torch, kernels, validate_streaming, recognizer) -> tuple[di
 
 
 @contextmanager
-def timed_calls(owner, attr: str, sink: list):
-    """Wall seconds of every call of owner.attr (a module's function or an
-    object's method) while inside."""
+def recorded_calls(owner, attr: str, record):
+    """owner.attr (a module's function or an object's method) with
+    record(args, result, wall seconds) called after each call while inside."""
     real = getattr(owner, attr)
     own = attr in vars(owner)
 
-    def timed(*args, **kw):
+    def wrapped(*args, **kw):
         t = time.perf_counter()
         out = real(*args, **kw)
-        sink.append(time.perf_counter() - t)
+        record(args, out, time.perf_counter() - t)
         return out
 
-    setattr(owner, attr, timed)
+    setattr(owner, attr, wrapped)
     try:
-        yield sink
+        yield
     finally:
         if own:
             setattr(owner, attr, real)
         else:
             delattr(owner, attr)
+
+
+def timed_calls(owner, attr: str, sink: list):
+    """Wall seconds of every call of owner.attr while inside, into sink."""
+    return recorded_calls(owner, attr, lambda _args, _out, sec: sink.append(sec))
 
 
 def counted(torch, kernels, runtimes, fn):
@@ -1930,7 +2073,9 @@ def families(torch, kernels, rerank, get_experiment, load_manifest, run_experime
     print(f"  {LM_FUSION}: N={res['total']} recall {res['recall']:.4f} seq_acc "
           f"{res['sequence_accuracy']:.4f} p50 {res['p50_latency'] * 1e3:.2f} ms ({res['acoustics']} "
           f"acoustics); {len(same)} of {len(ours)} clips emit the verses of the JAX record "
-          f"{JAX_LM_FUSION_RUN.name}; it gets {len(right)} of them right, the port misses "
+          f"{JAX_LM_FUSION_RUN.name} (not {[i for i in ours if i not in same]}; ROADMAP C.9: "
+          f"multi_114_001_006's greedy ids are a near tie); it gets {len(right)} of them right, "
+          f"the port misses "
           f"{missed}; wrong here: "
           f"{[i for i, r in ours.items() if r['sequence_accuracy'] != 1.0]}", flush=True)
     if errors or missed:
@@ -1977,6 +2122,230 @@ def families(torch, kernels, rerank, get_experiment, load_manifest, run_experime
     return out
 
 
+def _pairs(entries) -> list[list[int]]:
+    return [list(v) for v in _verses(entries)]
+
+
+def lattice_calls(rerank, sink: list):
+    """rerank.score_token_lists recorded per call: (seconds, token lists,
+    longest list L, t_valid). The phoneme experiment looks it up at each
+    call, so the wrapper sees every lattice of its rerank."""
+    return recorded_calls(rerank, "score_token_lists", lambda args, _out, sec: sink.append(
+        (sec, len(args[2]), max((len(x) for x in args[2]), default=0), int(args[1]))))
+
+
+def print_lattice(what: str, calls: list, predicts: int) -> dict:
+    """Per-call p50 / p90 and the ms per predict call (`predicts`: the
+    runner's calls, its warm-up included) of lattice_calls' record."""
+    if not calls:
+        print(f"  {what}: no lattice call", flush=True)
+        return {"calls": 0}
+    secs = sorted(c[0] for c in calls)
+    out = {"calls": len(calls), "p50_ms": secs[len(secs) // 2] * 1e3,
+           "p90_ms": secs[int(0.9 * (len(secs) - 1))] * 1e3,
+           "ms_per_clip": sum(secs) * 1e3 / max(predicts, 1),
+           "candidates_p50": sorted(c[1] for c in calls)[len(calls) // 2],
+           "max_L": max(c[2] for c in calls), "max_T": max(c[3] for c in calls)}
+    print(f"  {what}: lattice (rerank.score_token_lists, plain torch on the card) "
+          f"{out['calls']} calls, p50 {out['p50_ms']:.2f} ms, p90 {out['p90_ms']:.2f} ms, "
+          f"{out['ms_per_clip']:.2f} ms per clip; candidates p50 {out['candidates_p50']}, "
+          f"longest L {out['max_L']}, T up to {out['max_T']}", flush=True)
+    return out
+
+
+def runner_decisions(torch, kernels, name: str, exp, runtime, runtimes, samples, corpus_dir,
+                     run_experiment) -> tuple[dict, dict, list, dict]:
+    """`exp` through the port's runner over `samples` (counters zeroed just
+    before, read just after), each predict() recorded with every encoder row
+    it forwards on `runtime` (forward_batch, log_probs_batch; None: no
+    model). Returns (runner result, launches, forwards, {clip id:
+    decision_row})."""
+    from tilawa_tpu_torch.eval.jax_refs import decision_row
+
+    raw: dict[str, tuple] = {}
+    rows_of: list = []
+
+    def on_predict(args, out, _sec):
+        raw[Path(args[0]).stem] = (out, list(rows_of))
+        rows_of.clear()
+
+    def on_forward(args, out, _sec):   # (lp [B, T, V], lens [B], ...)
+        lps = out[0].float().cpu().numpy() if torch.is_tensor(out[0]) else out[0]
+        lens = out[1].cpu().numpy() if torch.is_tensor(out[1]) else out[1]
+        rows_of.extend((lps[i], int(lens[i])) for i in range(len(args[0])))
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recorded_calls(exp, "predict", on_predict))
+        for attr in ("forward_batch", "log_probs_batch") if runtime is not None else ():
+            stack.enter_context(recorded_calls(runtime, attr, on_forward))
+        res, launches, fw = counted(torch, kernels, runtimes, lambda: run_experiment(
+            name, exp, samples, corpus_dir))
+    files = {s["id"]: Path(s["file"]).stem for s in samples}
+    rows = {r["id"]: decision_row(raw[files[r["id"]]][0], r["predicted"], raw[files[r["id"]]][1])
+            for r in res["per_sample"]}
+    return res, launches, fw, rows
+
+
+def compare_decisions(what: str, ours: dict, ref: dict) -> list:
+    """Each clip's verses against the JAX reference's. A clip that differs
+    is named a near tie where the port's pick is within the packages' score
+    difference of the reference's best and that leads by less (C.6), or
+    where the greedy ids of its forwarded rows differ from the reference's
+    only at frames whose top-two gap is under jax_refs.LP_TOL (C.9); any
+    other difference fails. Returns the near ties."""
+    from tilawa_tpu_torch.eval.jax_refs import LP_TOL, flipped_frames, greedy_near_tie, near_tie
+
+    differ, ties = [], []
+    for i, row in ours.items():
+        if i not in ref:
+            differ.append((i, "not in the reference"))
+        elif row["predicted"] != ref[i]["predicted"]:
+            score_tie, greedy_tie = near_tie(ref[i], row), greedy_near_tie(ref[i], row)
+            if score_tie is None and greedy_tie is None:
+                differ.append((i, row["predicted"], ref[i]["predicted"]))
+                continue
+            ties.append(i)
+            how = (f"JAX's margin {score_tie:.4g} under the packages' score difference"
+                   if score_tie is not None else
+                   f"greedy ids differ at {len(flipped_frames(ref[i], row))} frames, JAX's "
+                   f"top-two gap there at most {greedy_tie:.4g} < {LP_TOL}")
+            print(f"    {what} near tie {i}: {row['predicted']} (JAX {ref[i]['predicted']}); "
+                  f"{how}", flush=True)
+    same_text = sum(row["transcript"] == ref.get(i, {}).get("transcript")
+                    for i, row in ours.items())
+    print(f"  {what}: verses equal to the JAX reference on {len(ours) - len(differ) - len(ties)} "
+          f"of {len(ours)} clips, transcripts on {same_text}; near ties {ties}; other "
+          f"differences {differ}", flush=True)
+    if differ:
+        raise AssertionError(f"{what}: verses differ from the JAX reference on {differ}")
+    return ties
+
+
+def phoneme_run(torch, kernels, rerank, exp, runtimes, section: str, load_manifest,
+                run_experiment) -> tuple[dict, dict, list, dict]:
+    """fastconformer-phoneme `exp` through the port's runner over every v1
+    sample, TILAWA_PHONEME_RERANK set for the *_rerank sections of the JAX
+    reference file, the lattice's calls recorded; its decisions held to that
+    section's (compare_decisions). Returns (runner result, launches,
+    forwards, lattice times)."""
+    from tilawa_tpu_torch.eval.jax_refs import PHONEME_REF, load_ref
+
+    samples, corpus_dir = load_manifest("v1")
+    lattice: list = []
+    os.environ["TILAWA_PHONEME_RERANK"] = "1" if section.endswith("_rerank") else ""
+    try:
+        with lattice_calls(rerank, lattice):
+            res, launches, fw, ours = runner_decisions(
+                torch, kernels, PHONEME, exp, runtimes[0] if runtimes else None, runtimes,
+                samples, corpus_dir, run_experiment)
+    finally:
+        os.environ.pop("TILAWA_PHONEME_RERANK", None)
+    errors = [d["id"] for d in res["dispositions"] if d["status"] == "error"]
+    print(f"  {PHONEME} [{section}, {res['acoustics']} acoustics]: N={res['total']} recall "
+          f"{res['recall']:.4f} seq_acc {res['sequence_accuracy']:.4f} p50 "
+          f"{res['p50_latency'] * 1e3:.2f} ms; launches {launches}, forwards {fw}", flush=True)
+    compare_decisions(f"{PHONEME} [{section}]", ours, load_ref(PHONEME_REF, section))
+    lat = print_lattice(f"{PHONEME} [{section}]", lattice, res["total"] + 1)
+    if errors or not ours:
+        raise AssertionError(f"{PHONEME} [{section}]: errors {errors}, {len(ours)} clips")
+    return res, launches, fw, lat
+
+
+def phoneme_oracle(torch, kernels, rerank, load_manifest, run_experiment) -> dict:
+    """fastconformer-phoneme on oracle acoustics (rendered on the host from
+    seed 0, as the JAX package renders them) over every v1 manifest row,
+    the CTC rerank off and on (its lattice on the card): decisions equal to
+    the JAX package's on the CPU, no kernel launched."""
+    from tilawa_tpu_torch.eval.experiments import PhonemeExperiment
+
+    out = {}
+    for section in ("oracle", "oracle_rerank"):
+        exp = PhonemeExperiment(DEVICE, oracle=True)
+        res, launches, _fw, out[section] = phoneme_run(
+            torch, kernels, rerank, exp, [], section, load_manifest, run_experiment)
+        if res["acoustics"] != "oracle" or any(launches.values()):
+            raise AssertionError(f"the oracle phoneme run is labelled {res['acoustics']} or "
+                                 f"launched {launches}")
+    return out
+
+
+def phoneme_train_phase(torch, np, kernels, init: Path, ckpt_dir: Path, steps: int,
+                        keeps_head: bool) -> dict:
+    """train.phoneme at full width from `init` (dequantized) over v1 phoneme
+    targets, `steps` steps, in ckpt_dir, under sync_census: per step the
+    bucket, loss, step ms (CUDA events, as in "train") and launches. Asserts
+    finite losses, one log-mel launch a step and no quantized one, no
+    synchronizing call of the port's own code in steps 2..; the head it
+    starts from is `init`'s own dequantized head (keeps_head) or a fresh
+    one ([512, 70] lecun normal, bias 0); the last checkpoint loads in
+    EncoderRuntime and gives finite [T, 70] log-probs."""
+    from tilawa_tpu_torch.data.audio import load_audio
+    from tilawa_tpu_torch.pipeline.runtime import EncoderRuntime
+    from tilawa_tpu_torch.train.checkpoint import load_variables
+    from tilawa_tpu_torch.train.phoneme import train_phoneme
+    from tilawa_tpu_torch.train.quantize import dequantize_variables
+
+    steps_log: list[dict] = []
+    start = torch.cuda.Event(enable_timing=True)
+
+    def callback(i, state, batch, loss):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        resume = torch.cuda.Event(enable_timing=True)
+        resume.record()
+        steps_log.append({"i": i, "shape": batch[0].shape, "loss": loss, "end": end,
+                          "resume": resume, "launches": launches, "warnings": len(seen)})
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with sync_census(torch) as seen:
+        start.record()
+        train_phoneme(init=init, checkpoint_dir=ckpt_dir, steps=steps, corpora=("v1",),
+                      seed=SEED, device=DEVICE, checkpoint_every=steps + 1, callback=callback)
+        torch.cuda.synchronize()
+    timed_steps(steps_log, start)
+    for st in steps_log:
+        b, n = st["shape"]
+        print(f"  step {st['i']}: {b} x {n / 16000:g} s, loss {float(st['loss']):.4f}, "
+              f"{st['ms']:.2f} ms, launches {st['launches']}", flush=True)
+    syncs = check_syncs(steps_log, seen, 2, f"train.phoneme from {init.name}")
+    if not all(np.isfinite(float(st["loss"])) for st in steps_log):
+        raise AssertionError("a phoneme training loss is not finite")
+    bad = [st["i"] for st in steps_log if st["launches"] != {
+        "int4_matmul": 0, "log_mel": 1, "int8_matmul": 0}]
+    if bad:
+        raise AssertionError(f"steps {bad}: want 1 log-mel and no quantized launch a step")
+
+    cfg0, start_vars = load_variables(ckpt_dir / "init")
+    head = start_vars["params"]["ctc_head"]
+    if cfg0.num_classes != 70 or head["kernel"].shape != (512, 70):
+        raise AssertionError(f"the trained head is {head['kernel'].shape}, vocab {cfg0.vocab_size}")
+    if keeps_head:
+        kept = dequantize_variables(load_variables(init)[1])["params"]["ctc_head"]
+        if not (np.array_equal(head["kernel"], kept["kernel"])
+                and np.array_equal(head["bias"], kept["bias"])):
+            raise AssertionError(f"continuation from {init} did not keep its trained head")
+        what = f"kept {init.name}'s trained head"
+    else:
+        ratio = float(head["kernel"].std() * np.sqrt(512))
+        if abs(ratio - 1) > HEAD_STD_BAND or head["bias"].any():
+            raise AssertionError(f"fresh head: std x sqrt(512) {ratio}, bias {head['bias'][:4]}")
+        what = f"fresh head, std x sqrt(512) {ratio:.4f}, bias 0"
+    cfg, variables = load_variables(ckpt_dir / f"step_{steps:06d}")
+    rt = EncoderRuntime(cfg, variables, device=DEVICE)
+    lp, t = rt.log_probs(load_audio(CORPUS / CLIPS[1]))
+    print(f"  {what}; step_{steps:06d} in EncoderRuntime: log-probs {tuple(lp.shape)}, "
+          f"t_valid {t}", flush=True)
+    if lp.shape[-1] != 70 or t <= 0 or not np.isfinite(lp[:t]).all():
+        raise AssertionError(f"the trained checkpoint gives log-probs {lp.shape}, t {t}")
+    timed = steps_log[1:]
+    return {"step_ms": sorted(st["ms"] for st in timed)[len(timed) // 2],
+            "losses": [float(st["loss"]) for st in steps_log], "sync_sites": syncs,
+            "log_mel_launches": sum(st["launches"]["log_mel"] for st in steps_log)}
+
+
 def harnesses(torch, np, kernels, runtime, validate_streaming, load_audio, manifest,
               eval_res: dict, stream_res: dict, tmp: Path) -> dict:
     """The diagnostic harnesses: the context sweep over CLIPS on the
@@ -1996,8 +2365,12 @@ def harnesses(torch, np, kernels, runtime, validate_streaming, load_audio, manif
     from tilawa_tpu_torch.eval.stability import run_stability
     from tilawa_tpu_torch.pipeline.runtime import bucket_length
 
+    from tilawa_tpu_torch.eval.jax_refs import SWEEP_REF, load_ref
+
     ids = {manifest[c]["id"] for c in CLIPS}
     out = {}
+    moved: list[tuple] = []
+    jax_sweep = load_ref(SWEEP_REF, "per_row")
     sweep, launches, fw = counted(torch, kernels, [runtime], lambda: context_sweep.run_sweep(
         runtime, ids=ids, verbose=False))
     check_launches("context sweep", launches, [runtime], fw)
@@ -2024,12 +2397,41 @@ def harnesses(torch, np, kernels, runtime, validate_streaming, load_audio, manif
             if n_pad != bucket_length(len(piece)):
                 own, t_own = runtime.log_probs(piece)
                 own_bucket_rows += 1
-                own_bucket_same += (t_own == t and np.array_equal(
-                    own[:t].argmax(-1), lps[i, :t].argmax(-1)))
+                ids_own, ids_pad = own[:t].argmax(-1), lps[i, :t].argmax(-1)
+                if t_own == t and np.array_equal(ids_own, ids_pad):
+                    own_bucket_same += 1
+                    continue
+                flips = np.flatnonzero(ids_own != ids_pad) if t_own == t else np.arange(t)
+                # each flipped frame's top-two gap, the smaller of the two buckets'
+                gap = float(np.minimum(*(np.diff(np.sort(x[flips], axis=-1)[:, -2:], axis=-1)
+                                         for x in (own[:t], lps[i, :t]))).max())
+                row = f"{clip}@{keys[i]}"
+                jax_delta = jax_sweep.get(row, {}).get("max_abs_delta", 0.0)
+                moved.append((row, piece, bucket_length(len(piece)), n_pad, gap, jax_delta))
+                delta = float(np.abs(own[:t] - lps[i, :t]).max())
+                print(f"  sweep row {row} s: greedy ids at its own bucket "
+                      f"{bucket_length(len(piece))} differ from those at {n_pad} on {len(flips)} "
+                      f"of {t} frames {flips.tolist()[:8]}; top-two gap there at most "
+                      f"{gap:.4g}; max|Δ log-prob| {delta:.4g} "
+                      f"(JAX on the CPU: {jax_delta:.4g}, frames moved "
+                      f"{jax_sweep.get(row, {}).get('moved_frames')})", flush=True)
+    jax_moved = sorted(r for r, v in jax_sweep.items() if v["moved_frames"])
     print(f"  context sweep: {rows_checked} rows of {len(CLIPS)} batched forwards (B "
           f"{sorted({b for b, _n, _t in sweep_shapes()})}) bitwise equal to each row forwarded "
           f"alone at the same bucket; at the row's own smaller bucket {own_bucket_same} of "
-          f"{own_bucket_rows} give the same greedy ids", flush=True)
+          f"{own_bucket_rows} give the same greedy ids (moved: {[m[0] for m in moved]}; the "
+          f"JAX package's own on the CPU move on {jax_moved} of {len(jax_sweep)})", flush=True)
+    for row, piece, n_own, n_pad, _gap, _d in moved:
+        print(f"  {row} s, bucket {n_own} vs {n_pad}:", flush=True)
+        bucket_variance(torch, runtime, piece, n_own, n_pad)
+    # the reference's ids depend on the bucket too (ROADMAP C.7): a row may move
+    # only at frames whose top-two gap is under what the padding moves JAX's
+    # log-probs by on that row
+    beyond = [(row, gap, d) for row, _p, _n, _m, gap, d in moved if not gap < d]
+    if own_bucket_rows != len(jax_sweep) or beyond:
+        raise AssertionError(f"sweep rows at their own bucket: {own_bucket_rows} (JAX reference "
+                             f"{len(jax_sweep)}); moved beyond the reference's own bucket "
+                             f"dependence: {beyond}")
 
     report, launches, fw = counted(torch, kernels, [], lambda: run_stability(
         MAIN_EXPERIMENT, repeats=STABILITY_REPEATS, ids=ids, device=DEVICE))
@@ -2091,12 +2493,19 @@ def _get(tree: dict, path: tuple):
     return tree
 
 
-def run() -> int:
+def run(bundles: str | None = None) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
         return 1
+    if bundles is not None:
+        missing = [str(b) for b in BUNDLE_SECTIONS[bundles]
+                   if not (b / "variables.msgpack").exists()]
+        if missing:
+            print(f"chip_smoke: --bundles {bundles} needs {missing} in this copy",
+                  file=sys.stderr, flush=True)
+            return 1
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
@@ -2138,6 +2547,8 @@ def run() -> int:
             check_int8(torch, np, quant, flush),
         ]
     del flush
+    if bundles is not None:
+        return bundle_section(torch, np, kernels, rerank, entries, kind, count, smi)
 
     manifest = {
         s["file"]: s
@@ -2304,6 +2715,16 @@ def run() -> int:
             {path: int4 for path, (int4, _mel) in paths.items()})
         entries[1]["path_launches"].update({path: mel for path, (_int4, mel) in paths.items()})
 
+        with phase("phoneme oracle"):
+            lattice = phoneme_oracle(torch, kernels, rerank, load_manifest, run_experiment)
+        with phase("phoneme train"):
+            ph_train = phoneme_train_phase(torch, np, kernels, CHAMPION, Path(tmp) / "phoneme",
+                                           PHONEME_TRAIN_STEPS, keeps_head=False)
+            entries[1]["path_launches"]["train.phoneme"] = ph_train["log_mel_launches"]
+    print("chip_smoke: the phoneme-int8 and heldout-int4 bundles run under "
+          "--bundles phoneme-heldout, from a copy of the repository that holds them",
+          flush=True)
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"train": {
@@ -2315,6 +2736,8 @@ def run() -> int:
         "distill_sync_sites": distilled["sync_sites"],
         "distill_first_kl": distilled["first_kl"],
         "distill_first_kl_full_rows": distilled["first_kl_full_rows"], "vs_plain": versus,
+        "phoneme_step_ms": ph_train["step_ms"], "phoneme_losses": ph_train["losses"],
+        "phoneme_sync_sites": ph_train["sync_sites"], "phoneme_oracle_lattice": lattice,
         "device": kind, "nvidia_smi": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
@@ -2326,9 +2749,118 @@ def run() -> int:
     return 0
 
 
-def main() -> int:
+def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: int,
+                   smi: str) -> int:
+    """--bundles phoneme-heldout, after the device, build and kernel phases:
+    phoneme-int8 through the port's runner over v1 (one forward's launches;
+    rerank off and on, decisions against the JAX package's live run),
+    heldout-int4 through the runner (decisions against the JAX package's
+    live run, 189 int4 + 1 log-mel a forward), then train.phoneme's
+    continuation from phoneme-int8."""
+    from tilawa_tpu_torch.data.audio import load_audio
+    from tilawa_tpu_torch.eval.experiments import get_experiment
+    from tilawa_tpu_torch.eval.jax_refs import HELDOUT_REF, load_ref
+    from tilawa_tpu_torch.eval.runner import load_manifest, run_experiment
+
+    with phase("phoneme bundle"):
+        exp = get_experiment(PHONEME, DEVICE)
+        rt = exp.runtime
+        if exp.acoustics != "real" or rt.config.quant != "int8" or rt.config.num_classes != 70:
+            raise AssertionError(f"{PHONEME} runs {exp.acoustics} acoustics on {rt.config}")
+        audio = load_audio(CORPUS / CLIPS[1])
+        rt.log_probs(audio)                                   # warm-up
+        (lp, t), one, _fw = counted(torch, kernels, [rt], lambda: rt.log_probs(audio))
+        print(f"  one phoneme-int8 forward of {CLIPS[1]}: log-probs {tuple(lp.shape)}, t_valid "
+              f"{t}; launches {one}", flush=True)
+        if one != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": INT8_LAUNCHES_PER_FORWARD} \
+                or lp.shape[-1] != 70:
+            raise AssertionError("a phoneme-int8 forward must launch 189 int8 and 1 log-mel "
+                                 "kernels and give 70 classes")
+        lattice = {}
+        for section in ("real", "real_rerank"):
+            res, launches, fw, lattice[section] = phoneme_run(
+                torch, kernels, rerank, exp, [rt], section, load_manifest, run_experiment)
+            if fw[0] == 0 or launches != {"int4_matmul": 0, "log_mel": fw[0],
+                                          "int8_matmul": INT8_LAUNCHES_PER_FORWARD * fw[0]}:
+                raise AssertionError(f"{PHONEME} [{section}]: launches {launches} over {fw} "
+                                     f"forwards, want 189 int8 + 1 log-mel a forward")
+            if res["total"] < MIN_EVAL_CLIPS:
+                raise AssertionError(f"only {res['total']} clips scored")
+            if section == "real":
+                entries[2]["launches"] = launches["int8_matmul"]
+                entries[1]["launches"] = launches["log_mel"]
+                p50 = res["p50_latency"]
+                recorded = {r["id"]: _pairs(r["predicted"]) for r in json.loads(
+                    JAX_PHONEME_RUN.read_text())[0]["per_sample"]}
+                moved = [r["id"] for r in res["per_sample"]
+                         if _pairs(r["predicted"]) != recorded[r["id"]]]
+                print(f"  against the record {JAX_PHONEME_RUN.name} (today's JAX package "
+                      f"differs from it on 3 of 44 clips): verses differ on {moved}", flush=True)
+        entries[2]["phoneme_head_launches"] = entries[2]["launches"] // INT8_LAUNCHES_PER_FORWARD
+
+    with phase("heldout bundle"):
+        rec = get_experiment("heldout", DEVICE)
+        if rec.runtime.config.quant != "int4" or not rec.tta:
+            raise AssertionError("heldout must be the int4 bundle with TTA")
+        samples, corpus_dir = load_manifest("v1")
+        res, launches, fw, ours = runner_decisions(torch, kernels, "heldout", rec, rec.runtime,
+                                                   [rec.runtime], samples, corpus_dir,
+                                                   run_experiment)
+        recorded = {r["id"]: _pairs(r["predicted"])
+                    for r in json.loads(JAX_HELDOUT_RUN.read_text())[0]["per_sample"]}
+        old = [(i, recorded[i]) for i in ours if ours[i]["predicted"] != recorded[i]]
+        tta = sum(bool(r["tta"]) for r in ours.values())
+        print(f"  heldout: N={res['total']} recall {res['recall']:.4f} seq_acc "
+              f"{res['sequence_accuracy']:.4f} p50 {res['p50_latency'] * 1e3:.2f} ms, TTA on "
+              f"{tta} clips; launches {launches} over {fw} forwards; differs from the record "
+              f"{JAX_HELDOUT_RUN.name} on {old}", flush=True)
+        ref = load_ref(HELDOUT_REF)
+        ties = compare_decisions("heldout", ours, ref)
+        # a clip may differ from the record where it is a near tie, or where
+        # today's JAX package differs from the record too
+        stale = [i for i, _v in old if i not in ties and ref[i]["predicted"] == recorded[i]]
+        if stale:
+            raise AssertionError(f"heldout differs from {JAX_HELDOUT_RUN.name} on {stale}")
+        errors = [d["id"] for d in res["dispositions"] if d["status"] == "error"]
+        if errors or res["total"] < MIN_EVAL_CLIPS:
+            raise AssertionError(f"heldout: errors {errors}, {res['total']} clips")
+        if fw[0] == 0 or launches != {"int4_matmul": INT4_LAUNCHES_PER_FORWARD * fw[0],
+                                      "log_mel": fw[0], "int8_matmul": 0}:
+            raise AssertionError("heldout did not run 189 int4 and 1 log-mel launches a forward")
+        entries[0]["launches"] = launches["int4_matmul"]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phoneme_") as tmp:
+        with phase("phoneme continuation"):
+            cont = phoneme_train_phase(torch, np, kernels, PHONEME_BUNDLE, Path(tmp) / "cont",
+                                       CONTINUE_STEPS, keeps_head=True)
+            entries[1]["train_launches"] = cont["log_mel_launches"]
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"bundles": {"phoneme_p50_s": p50, "phoneme_lattice": lattice,
+                                  "continuation_step_ms": cont["step_ms"],
+                                  "continuation_losses": cont["losses"],
+                                  "device": kind, "nvidia_smi": smi}}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [
+        {**{k: e[k] for k in keys}, **{k: v for k, v in e.items() if k not in keys}}
+        for e in entries
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+          flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="smoke run of the port on one CUDA card")
+    parser.add_argument("--bundles", choices=sorted(BUNDLE_SECTIONS), default=None,
+                        help="run the section of these bundles instead of the default phases "
+                             "(a copy of the repository that holds them)")
+    args = parser.parse_args(argv)
     try:
-        return run()
+        return run(args.bundles)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED in {e}", file=sys.stderr, flush=True)
         return 1

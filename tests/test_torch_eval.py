@@ -30,8 +30,8 @@ REPO = EXPORTS_DIR.parent
 CORPUS = REPO / "benchmark" / "test_corpus"
 PORTED = (
     "c2c-direct", "c2c-direct-mixed", "c2c-direct-mixed-tta", "c2c-direct-tta",
-    "ctc-alignment", "fastconformer-quran-lm-fusion", "fastconformer-zeroshot", "heldout",
-    "oracle", "oracle-hard", "pruned-ctc", "two-stage",
+    "ctc-alignment", "fastconformer-phoneme", "fastconformer-quran-lm-fusion",
+    "fastconformer-zeroshot", "heldout", "oracle", "oracle-hard", "pruned-ctc", "two-stage",
 )
 KEY = ("surah", "ayah", "ayah_end")
 MODES = ("gated", "always", "never")

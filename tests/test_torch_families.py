@@ -17,6 +17,9 @@ modules against the JAX package's, on the CPU.
   points differ, ROADMAP C.3), the port may pick a candidate within that
   difference of the reference's best. The un-fine-tuned L6 prune scores
   every candidate near -13 and meets this on retasy_002 (ROADMAP C.6).
+  On the 41 s multi_114_001_006 LM fusion picks other verses than JAX: its
+  greedy ids differ at two frames whose top-two gap is under the packages'
+  log-prob difference (ROADMAP C.9, LONG_NEAR_TIE).
   The random-init fallbacks of the JAX package raise here; the runner's
   --list expands pruned-ctc as the JAX runner's does.
 """
@@ -235,6 +238,35 @@ def test_family_decisions_equal_jax(family_decisions, name, clip):
         assert ours.get("tta") == ref.get("tta")
 
 
+# ROADMAP C.9: on the 41 s multi_114_001_006 the port's LM-fusion pick (114:3-6)
+# differs from JAX's and its record's (114:4-6). The champion's greedy ids
+# differ at 2 of 519 frames, where JAX's top-two gap is 0.193 and 0.192, under
+# the packages' max|Δ log-prob| on the clip (0.815): one word of the transcript
+# splits differently, retrieval builds other candidates, and the pick follows.
+LONG_NEAR_TIE = ("multi_114_001_006.wav", [185, 292])
+
+
+def test_long_clip_greedy_near_tie():
+    from tilawa_tpu.pipeline.runtime import EncoderRuntime as JaxRuntime
+    from tilawa_tpu.train.checkpoint import load_variables as jax_load
+    from tilawa_tpu_torch.data.audio import load_audio
+    from tilawa_tpu_torch.eval.jax_refs import LP_TOL, greedy
+
+    clip, frames = LONG_NEAR_TIE
+    config, variables = jax_load(EXPORTS_DIR / "champion-int4")
+    jrt = JaxRuntime(dataclasses.replace(config, use_pallas=False), variables)
+    audio = load_audio(CORPUS / clip)
+    jlp, jt = jrt.log_probs(audio)
+    lp, t = texp.get_experiment("fastconformer-quran-lm-fusion", device="cpu").real \
+        .runtime.log_probs(audio)
+    a, b = greedy(lp, t), greedy(np.asarray(jlp), jt)
+    delta = float(np.abs(lp[:t] - np.asarray(jlp)[:t]).max())
+    assert t == jt == 519
+    assert [i for i, (x, y) in enumerate(zip(a["ids"], b["ids"])) if x != y] == frames
+    assert [b["gaps"][i] for i in frames] == pytest.approx([0.193, 0.192], abs=1e-3)
+    assert delta == pytest.approx(0.815, abs=1e-3) and delta <= LP_TOL
+
+
 def test_family_shapes_and_labels():
     lm = texp.get_experiment("fastconformer-quran-lm-fusion", device="cpu")
     assert lm.acoustics == "real" and lm.model_size() > 0
@@ -275,7 +307,7 @@ def test_runner_list_expands_variants(capsys):
     ours = capsys.readouterr().out.split()
     jrunner.main(["--list"])
     ref = capsys.readouterr().out.split()
-    assert ours == [name for name in ref if name != "fastconformer-phoneme"]
+    assert ours == ref
 
 
 def test_runner_model_selects_a_variant(capsys):

@@ -12,12 +12,15 @@ counterpart of `tilawa_tpu/data/quran.py` is `tilawa_tpu_torch/data/quran.py`).
               three hand-written CUDA kernels live in csrc/ and are built
               with nvcc into _build/ at first use
   pipeline  — encoder runtime (long-clip stitching, streaming encoder
-              cache), candidate retrieval, CTC rerank, Recognizer
+              cache), candidate retrieval, CTC rerank, Recognizer, the
+              phoneme pipeline and its oracle acoustics
   streaming — recitation tracker and session, verse tracker and
               StreamingPipeline (copied), micro-batch dispatcher,
               WebSocket server
   eval      — experiment registry (the champion modes, LM fusion,
-              pruned-ctc, two-stage, heldout, oracles) and runtime loading,
+              pruned-ctc, two-stage, heldout, the phoneme family, oracles)
+              and runtime loading, the JAX package's recorded decisions the
+              card's gates compare with (jax_refs.py, refs/),
               the runner, the batched corpus eval, metrics, the streaming
               validation replay, the WS endpoint bench, and the diagnostic
               harnesses: context sweep, stability, run_single, tracker
@@ -26,9 +29,10 @@ counterpart of `tilawa_tpu/data/quran.py` is `tilawa_tpu_torch/data/quran.py`).
               checkpoint reader/writer, data and forced alignment (numpy
               copies), int4/int8 quantization and its inverse, export with
               the sha256 contract, self-distillation, the corpus-fit
-              report, depth pruning
+              report, depth pruning, the phoneme-head fine-tune
   data/text — host code copied from the JAX package (with the word n-gram
-              LM and the token trie); ops/beam.py and utils/profiling.py
+              LM, the token trie, the phoneme store and the phoneme
+              aligner); ops/beam.py and utils/profiling.py
               are copies too
 
 Entry points, on the card unless --device cpu (or device="cpu") is passed:
@@ -41,6 +45,7 @@ Entry points, on the card unless --device cpu (or device="cpu") is passed:
   python -m tilawa_tpu_torch.train.train           CTC training (small/large preset)
   python -m tilawa_tpu_torch.train.finetune        the champion fine-tune recipe
   python -m tilawa_tpu_torch.train.distill         self-distillation from champion-int4
+  python -m tilawa_tpu_torch.train.phoneme         the phoneme-head fine-tune
   python -m tilawa_tpu_torch.train.export          a checkpoint → an int4 bundle
   python -m tilawa_tpu_torch.train.prune           a checkpoint → a depth-pruned one
   python -m tilawa_tpu_torch.eval.context_sweep    decodes of 1/2/3/5/10 s prefixes

@@ -58,8 +58,8 @@
 // epilogue's scales and bias are staged in shared memory while the first
 // stage loads. What remains is latency: a cold load, one stage's products,
 // the barrier and the partials' round trip through L2.
-// Weight rows that are not 16-byte aligned (N = 1025 for the CTC head) are
-// loaded with plain loads.
+// Weight rows that are not 16-byte aligned (N = 1025 for the text CTC head,
+// 70 for the phoneme head) are loaded with plain loads.
 
 #pragma once
 
@@ -503,7 +503,7 @@ int launch(const void* x, const void* w, const void* scales, const void* bias, v
   const bool vx = (LOADER == INT4_SPLIT_HALF ? K % 16 == 0 : K % 8 == 0) && aligned16(x);
   const bool vw = N % 16 == 0 && aligned16(w) && aligned16(scales);
   cudaError_t err;
-  if (!vw) {  // the narrow tile only: a misaligned N is the CTC head's, at most 400 rows
+  if (!vw) {  // the narrow tile only: a misaligned N is a CTC head's (N = 1025 or 70)
     err = vx ? launch_tile<LOADER, EPI, true, false, 32>(p, s)
              : launch_tile<LOADER, EPI, false, false, 32>(p, s);
   } else if (!vx) {

@@ -19,6 +19,11 @@ unless the caller passes device="cpu") and cached per (name, device):
                           CTC-reranks every clip's candidates
   heldout                 the champion pipeline on exports/heldout-int4
                           (or TILAWA_HELDOUT_CKPT), with TTA
+  fastconformer-phoneme   the phoneme bundle (exports/phoneme-int8 or
+                          TILAWA_PHONEME_CKPT): phoneme decode, phoneme-space
+                          retrieval and peel-off, optional CTC rerank
+                          (TILAWA_PHONEME_RERANK); without a bundle, oracle
+                          acoustics labelled acoustics="oracle"
   oracle / oracle-hard    the decision stack over log-probs rendered from
                           the manifest's ground truth (no audio decoded)
 
@@ -27,8 +32,8 @@ on an EncoderRuntime; load_champion() is the shipped checkpoint,
 exports/champion-int4 unless TILAWA_CHECKPOINT names another. Where the
 JAX package builds a random-init model for want of a checkpoint (the
 runtime loaders, pruned-ctc, two-stage), the port raises
-FileNotFoundError. The phoneme family (fastconformer-phoneme) is not
-ported yet (ROADMAP A.4).
+FileNotFoundError; where it falls back to labelled oracle acoustics
+(LM fusion, the phoneme family), so does the port.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import json
 import os
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from tilawa_tpu_torch.device import resolve_device
@@ -426,6 +432,320 @@ class TwoStageExperiment:
         return self._stage1.model_size() + self._stage2.model_size()
 
 
+def _phoneme_checkpoint() -> Path | None:
+    """TILAWA_PHONEME_CKPT, else the shipped phoneme bundle
+    (exports/phoneme-int8), else the newest step of checkpoints/phoneme
+    (train/phoneme.py), else None."""
+    env = os.getenv("TILAWA_PHONEME_CKPT")
+    if env:
+        return Path(env)
+    shipped = EXPORTS_DIR / "phoneme-int8"
+    if (shipped / "variables.msgpack").exists():
+        return shipped
+    steps = sorted((CHECKPOINT_DIR / "phoneme").glob("step_*"))
+    return steps[-1] if steps else None
+
+
+class PhonemeExperiment:
+    """Phoneme pipeline (reference: experiments/fastconformer-phoneme/
+    run.py — 69-token CTC head + mispronunciation detection). Runs the
+    phoneme bundle on an EncoderRuntime on `device` when one exists
+    (_phoneme_checkpoint), else synthetic phoneme acoustics rendered on the
+    host (PhonemeOracleRuntime, seed 0) with acoustics="oracle" in every
+    results row, as the JAX package does; oracle=True takes them even where
+    a bundle exists. With TILAWA_PHONEME_RERANK set, the CTC rerank of
+    phoneme candidates runs on `device`."""
+
+    def __init__(self, device: str | torch.device = "cuda", oracle: bool = False):
+        from tilawa_tpu_torch.data.phonemes import PhonemeStore
+        from tilawa_tpu_torch.pipeline.phoneme import PhonemeOracleRuntime, PhonemePipeline
+
+        self.device = resolve_device(device)
+        ckpt = None if oracle else _phoneme_checkpoint()
+        if ckpt is not None:
+            config, variables = load_variables(ckpt)
+            self.runtime = EncoderRuntime(config, variables, device=self.device)
+            self.store = PhonemeStore.load_default()
+            self.acoustics = "real"
+        else:
+            self.runtime = PhonemeOracleRuntime(noise=0.3)
+            self.store = self.runtime.store
+            self.acoustics = "oracle"
+        self.pipeline = PhonemePipeline(self.runtime, store=self.store)
+
+    def transcribe(self, path: str) -> str:
+        if self.acoustics == "oracle":
+            raise NotImplementedError(
+                "phoneme transcribe requires trained weights or oracle refs"
+            )
+        return self.pipeline.transcribe_phonemes(path)
+
+    def _peel_sequence(
+        self, phonemes: str, max_verses: int = 12
+    ) -> list[tuple[int, int, float]]:
+        """Multi-verse phoneme decoding: repeatedly match the HEAD of the
+        remaining phoneme string against verse reference strings (with a
+        continuation bonus), emit, and trim the matched prefix — the
+        phoneme-space analogue of the full-transcript peel-off loop
+        (reference: shared/streaming.py:57-99; w2v-phonemes chunking +
+        voting, experiments/w2v-phonemes/run.py:234-293). A single whole-
+        verse clip degenerates to one iteration."""
+        from tilawa_tpu_torch.text.levenshtein import ratio
+
+        # Every surah's verse-1 ref embeds the bismillah; a recited
+        # bismillah otherwise matches 1:1 (whose ref IS the bismillah)
+        # and the stripped remainder then misses (s,1) refs that still
+        # carry the prefix. Score both variants.
+        bsm = self.store.refs.get((1, 1), "")
+
+        def variants(s: int, a: int, ref: str) -> list[str]:
+            if a == 1 and bsm and ref.startswith(bsm) and len(ref) > len(bsm):
+                return [ref, ref[len(bsm):].strip(" |")]
+            return [ref]
+
+        out: list[tuple[int, int, float]] = []
+        remaining = phonemes.strip()
+        hint: tuple[int, int] | None = None
+        pending_bsm = False
+        while len(remaining.split()) >= 4 and len(out) < max_verses:
+            # Candidates from the full remainder AND a head window: the
+            # full-string ratio buries short verse-1 refs under a long
+            # multi-verse tail (36:1 ranked nowhere for a 5-verse string).
+            pool = {
+                (c["surah"], c["ayah"])
+                for c in self.store.match_verse(remaining, top_k=40)
+            }
+            if len(remaining) > 120:
+                pool |= {
+                    (c["surah"], c["ayah"])
+                    for c in self.store.match_verse(remaining[:120], top_k=40)
+                }
+                pool |= {
+                    (c["surah"], c["ayah"])
+                    for c in self.store.match_verse(remaining[:60], top_k=20)
+                }
+            if hint and (hint[0], hint[1] + 1) in self.store.refs:
+                pool.add((hint[0], hint[1] + 1))
+            # Rarity 5-gram surah voting widens the pool with verses the
+            # edit-ratio scan buries under length mismatch (reference:
+            # w2v-phonemes/run.py:234-293).
+            for v in self.store.ngram_vote(remaining[:160]):
+                for a in range(v["ayah"], min(v["ayah_end"], v["ayah"] + 7) + 1):
+                    if (v["surah"], a) in self.store.refs:
+                        pool.add((v["surah"], a))
+            best = None
+            # the pool is a set: its iteration order is Python's hash order
+            # of int tuples, the same in both packages, so ties break alike
+            for (s, a) in pool:
+                base_ref = self.store.refs.get((s, a)) or ""
+                if not base_ref:
+                    continue
+                for ref in variants(s, a, base_ref):
+                    pr = ratio(remaining[: len(ref) + 8], ref)
+                    bonus = (
+                        0.15 if hint and (s, a) == (hint[0], hint[1] + 1)
+                        else 0.0
+                    )
+                    if best is None or pr + bonus > best[0]:
+                        best = (pr + bonus, pr, s, a, ref)
+            if best is None or best[1] < 0.45:
+                break
+            _, pr, s, a, ref = best
+            if (s, a) == (1, 1) and not hint:
+                # A leading pure-bismillah read may be surah preamble, not
+                # Fatiha: hold it; emit only if surah 1 actually continues.
+                pending_bsm = True
+            else:
+                if pending_bsm:
+                    if (s, a) == (1, 2):
+                        out.append((1, 1, pr))
+                    pending_bsm = False
+                out.append((s, a, pr))
+            lo = max(1, int(len(ref) * 0.6))
+            hi = min(len(remaining), int(len(ref) * 1.4) + 4)
+            cut, cbest = min(hi, len(remaining)), -1.0
+            step = max(1, (hi - lo) // 24)
+            for c in range(lo, hi + 1, step):
+                r = ratio(remaining[:c], ref)
+                if r > cbest:
+                    cbest, cut = r, c
+            remaining = remaining[cut:].strip()
+            hint = (s, a)
+        if pending_bsm and not out:
+            out.append((1, 1, 0.5))
+        return out
+
+    def _ctc_rerank_phonemes(
+        self, lp, t_valid: int, phonemes: str,
+        seq: list[tuple[int, int, float]],
+    ) -> dict | None:
+        """Forced-alignment rerank of verse/span candidates against the
+        phoneme log-probs — the champion's decisive stage (reference:
+        c2c-direct/run.py:314-380) applied in phoneme space, the lattice
+        on the experiment's device."""
+        import math
+
+        from tilawa_tpu_torch.device import upload
+        from tilawa_tpu_torch.ops.ctc import pad_frames
+        from tilawa_tpu_torch.pipeline import rerank
+
+        cands: list[tuple[int, int, int | None]] = []
+        seen: set[tuple] = set()
+
+        def add(s: int, a: int, a_end: int | None) -> None:
+            if a_end is not None and a_end <= a:
+                a_end = None
+            key = (s, a, a_end)
+            if key in seen or (s, a) not in self.store.refs:
+                return
+            if a_end is not None and (s, a_end) not in self.store.refs:
+                return
+            seen.add(key)
+            cands.append(key)
+
+        singles = self.store.match_verse(phonemes, top_k=12)
+        for c in singles:
+            add(c["surah"], c["ayah"], None)
+        for v in self.store.ngram_vote(phonemes):
+            a_end = min(v["ayah_end"], v["ayah"] + 7)
+            add(v["surah"], v["ayah"], a_end if a_end > v["ayah"] else None)
+            add(v["surah"], v["ayah"], None)
+        if seq:
+            s0, a0, _ = seq[0]
+            add(s0, a0, None)
+            ayahs = [a for s, a, _sc in seq if s == s0]
+            if ayahs == list(range(a0, a0 + len(seq))) and len(seq) > 1:
+                add(s0, a0, ayahs[-1])
+        # span enumeration around the single-verse leaders
+        for c in singles[:4]:
+            for k in range(1, 6):
+                add(c["surah"], c["ayah"], c["ayah"] + k)
+            for back in range(1, 3):  # the leader may be mid-span
+                a0 = c["ayah"] - back
+                if a0 >= 1:
+                    add(c["surah"], a0, c["ayah"])
+        if not cands:
+            return None
+        token_lists = [self.store.verse_ids(s, a, a_end) for s, a, a_end in cands]
+        if self.device.type != "cpu":
+            padded, _t = pad_frames(np.asarray(lp[:t_valid], dtype=np.float32))
+            lp = upload(padded, self.device)
+        scores = rerank.score_token_lists(
+            lp, t_valid, token_lists, blank_id=self.store.blank_id
+        )
+        best = None
+        for (s, a, a_end), nll in zip(cands, scores):
+            if not np.isfinite(nll):
+                continue
+            span = (a_end - a + 1) if a_end else 1
+            final = -float(nll) - rerank.SPAN_PENALTY * (span - 1)
+            if best is None or final > best[0]:
+                best = (final, float(nll), s, a, a_end)
+        if best is None:
+            return None
+        _final, nll, s, a, a_end = best
+        return {
+            "surah": s, "ayah": a, "ayah_end": a_end,
+            "score": math.exp(-nll) if math.isfinite(nll) else 0.0,
+            "transcript": phonemes, "source": "phoneme-ctc",
+        }
+
+    def predict(self, path: str) -> dict:
+        """Phoneme decode → phoneme-space retrieval → (with
+        TILAWA_PHONEME_RERANK) CTC forced-alignment rerank (reference:
+        experiments/w2v-phonemes/run.py Levenshtein over quran_phonemes.json
+        + the champion's rerank stage)."""
+        from tilawa_tpu_torch.text.levenshtein import ratio
+
+        if self.acoustics == "oracle":
+            # synthetic path: render corrupted phoneme log-probs for the
+            # sample's true refs (marked acoustics='oracle' in results)
+            surah, ayah, _ = manifest_refs_for(path)[0]
+            lp, t = self.runtime.render(surah, ayah)
+        else:
+            from tilawa_tpu_torch.data.audio import load_audio
+
+            lp, t = self.runtime.log_probs(load_audio(path))
+        phonemes = self.store.decode_logprobs(lp, t)
+        seq = self._peel_sequence(phonemes)
+        reranked = (
+            self._ctc_rerank_phonemes(lp, t, phonemes, seq)
+            if os.getenv("TILAWA_PHONEME_RERANK", "") not in ("", "0")
+            else None
+        )
+        if len(seq) > 1:
+            s0, a0, _ = seq[0]
+            ayahs = [a for s, a, _sc in seq if s == s0]
+            contiguous = (
+                len(ayahs) == len(seq)
+                and ayahs == list(range(a0, a0 + len(seq)))
+            )
+            if contiguous:
+                # the peel can cover arbitrarily long recitations; the
+                # rerank's span enumeration caps at 8 ayahs — only let the
+                # rerank override when it covers at least as much
+                r_span = (
+                    (reranked["ayah_end"] or reranked["ayah"])
+                    - reranked["ayah"] + 1
+                ) if reranked else 0
+                if reranked and r_span >= len(seq):
+                    return reranked
+                return {
+                    "surah": s0, "ayah": a0,
+                    "ayah_end": ayahs[-1],
+                    "score": sum(sc for _s, _a, sc in seq) / len(seq),
+                    "transcript": phonemes,
+                }
+        if reranked is not None:
+            return reranked
+        matches = self.store.match_verse(phonemes, top_k=5)
+        # Vote-seeded span candidates: score each top rarity-vote run as a
+        # whole span against the full phoneme string; a run that reads
+        # better than the single-verse leader becomes the match.
+        for v in self.store.ngram_vote(phonemes):
+            a_end = min(v["ayah_end"], v["ayah"] + 7)
+            ref = self.store.reference_phonemes(v["surah"], v["ayah"], a_end)
+            if not ref:
+                continue
+            sc = ratio(phonemes, ref)
+            if not matches or sc > matches[0]["score"]:
+                matches.insert(0, {
+                    "surah": v["surah"], "ayah": v["ayah"],
+                    "ayah_end": a_end if a_end > v["ayah"] else None,
+                    "score": sc,
+                })
+        if seq and (not matches or seq[0][2] >= matches[0]["score"]):
+            s0, a0, sc = seq[0]
+            matches = [{"surah": s0, "ayah": a0, "score": sc}] + matches
+        if not matches:
+            return {"surah": 0, "ayah": 0, "ayah_end": None, "score": 0.0,
+                    "transcript": phonemes}
+        best = matches[0]
+        return {
+            "surah": best["surah"], "ayah": best["ayah"],
+            "ayah_end": best.get("ayah_end"),
+            "score": best["score"], "transcript": phonemes,
+            "candidates": matches,
+        }
+
+    def detect_mispronunciations(self, surah: int, ayah: int) -> dict:
+        if self.acoustics == "oracle":
+            lp, t = self.runtime.render(surah, ayah)
+            predicted = self.store.decode_logprobs(lp, t)
+            return self.store.detect_mispronunciations(predicted, surah, ayah)
+        raise NotImplementedError(
+            "use pipeline.detect_mispronunciations(audio_path, ...) with "
+            "real weights"
+        )
+
+    def model_size(self) -> int:
+        if self.acoustics == "real":
+            from tilawa_tpu_torch.models.convert import packed_size_bytes
+
+            return packed_size_bytes(self.runtime.variables)
+        return 0
+
+
 @register("two-stage")
 def _two_stage(device):
     return TwoStageExperiment(device=device)
@@ -439,6 +759,11 @@ def _pruned_ctc(device):
 @register("fastconformer-quran-lm-fusion")
 def _lm_fusion(device):
     return LMFusionExperiment(error_rate=0.10, noise=1.0, device=device)
+
+
+@register("fastconformer-phoneme")
+def _fastconformer_phoneme(device):
+    return PhonemeExperiment(device=device)
 
 
 @register("oracle")

@@ -111,6 +111,14 @@ class FastConformerConfig:
         return cls(**base)
 
     @classmethod
+    def phoneme(cls, **kw) -> "FastConformerConfig":
+        """69-token Buckwalter phoneme CTC head (reference:
+        experiments/fastconformer-phoneme/run.py:43-55, blank at 69)."""
+        base = dict(vocab_size=69)
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
     def small(cls, **kw) -> "FastConformerConfig":
         """Test-scale config: same topology, tiny dims."""
         base = dict(

@@ -250,6 +250,16 @@ def make_train_step(blank_id: int, freeze_bn: bool = False):
     return train_step
 
 
+def lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """jax.nn.initializers.lecun_normal's distribution on the CPU: a normal
+    truncated at ±2σ with σ = 1/sqrt(fan_in)/0.8796 (the truncation's std
+    correction), drawn by inverse CDF from `generator`."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    w = torch.empty(shape).uniform_(lo, hi, generator=generator).erfinv_()
+    return w.mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+
+
 @torch.no_grad()
 def init_params(model: FastConformerCTC, seed: int = 0) -> FastConformerCTC:
     """flax's default initializers: Dense and Conv kernels lecun normal
@@ -260,10 +270,7 @@ def init_params(model: FastConformerCTC, seed: int = 0) -> FastConformerCTC:
     for name, p in model.named_parameters():
         if name.endswith("kernel"):
             fan_in = p.shape[0] if p.dim() == 2 else math.prod(p.shape[1:])
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
-            w = torch.empty(p.shape).uniform_(lo, hi, generator=gen).erfinv_()
-            p.copy_(w.mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std))
+            p.copy_(lecun_normal(p.shape, fan_in, gen))
         elif name.endswith("scale"):
             p.fill_(1.0)
         else:
