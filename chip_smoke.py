@@ -5,6 +5,8 @@
     python3 chip_smoke.py --bundles phoneme-heldout
                                  # from a copy holding exports/phoneme-int8 and
                                  # exports/heldout-int4 (see the end of this text)
+    python3 chip_smoke.py --layouts 2x2,1x4,4x1
+                                 # the multi-device phase alone on four cards
 
 Phases (each prints its elapsed seconds; any failure exits non-zero
 without the final line):
@@ -133,8 +135,33 @@ without the final line):
                  launch a step, the sync census of "train"; the head is
                  [512, 70] lecun normal, bias 0; the checkpoint loads in
                  EncoderRuntime and gives [T, 70] log-probs
+  23. multi-     the sharded step (tilawa_tpu_torch/parallel/) in a child
+      device     process with its own timeout that is rank 0 of a world-size-1
+                 NCCL mesh (data 1 x model 1; NCCL refuses two ranks on one
+                 card): the dequantized champion at full width (finetune's
+                 dropout and SpecAugment, live BatchNorm) on "train vs
+                 plain"'s v1 batch, MD_STEPS sharded steps against two
+                 plain make_train_step runs from the same variables and
+                 generators: losses, per-step gradients, parameters and
+                 BatchNorm stats within MD_FLOOR_FACTOR times the plain-twice
+                 floor (0: bitwise); the same in f32, its distance from an
+                 f64 run within MD_FLOOR_FACTOR times the plain f32 run's,
+                 its parameters equal to a replay of its own gradients; one
+                 log-mel and no quantized launch a step; each path's step ms
+                 (CUDA events and host clock, in turns); the sharded forward
+                 + CTC rerank of 6 transcripts equal to the unsharded
+                 model's scores. Then, on the host's CPU and labelled so,
+                 the 8-rank gloo dry run (data 4 x model 2) and the JAX
+                 package's line
 
---bundles phoneme-heldout replaces phases 4-22 (it fails at once if either
+--layouts DATAxMODEL,... (e.g. 2x2,1x4,4x1 on a four-card machine) runs
+phase 23 alone, one NCCL rank a card, one mesh a layout, each using every
+card: the f32 gates hold on every layout; where a sum is split the bf16
+step flips roundings through the 17 blocks, so its deltas are printed.
+It ends with the {"multi_device": ...} line (every number of the phase),
+nvidia-smi's line and the ok line.
+
+--bundles phoneme-heldout replaces phases 4-23 (it fails at once if either
 bundle is absent) with three phases:
   phoneme bundle   one phoneme-int8 forward (189 int8 + 1 log-mel launches, 70
                    classes); the runner over every decodable v1 clip, rerank
@@ -153,10 +180,10 @@ the ok line.
 
 The last four lines: one JSON object {"train": {...}} (step ms, audio-s/s,
 peak bytes, training MFU, distill step ms, the kernel-vs-plain deltas, the
-card and its power limit), nvidia-smi's name and power limit, one JSON
+multi-device phase's numbers, the card and its power limit), nvidia-smi's name and power limit, one JSON
 object with every kernel's numbers (`launches`: the eval phase's run;
 `train_launches`: the train phase's log-mel and the distill teacher's
-int4; `path_launches`: one entry per path of phases 11, 19, 20 and 22; the
+int4; `path_launches`: one entry per path of phases 11, 19, 20, 22 and 23; the
 int8 entry's `phoneme_head`: the (512, 70) head's times per M), and
 {"ok": true, "device": {...}}. A line before them says that the bundle
 section runs under --bundles.
@@ -226,6 +253,21 @@ BUNDLE_SECTIONS = {"phoneme-heldout": (PHONEME_BUNDLE, HELDOUT_BUNDLE)}
 PHONEME_TRAIN_STEPS = 6     # train.phoneme's swap-head path from champion-int4
 CONTINUE_STEPS = 3          # train.phoneme --init exports/phoneme-int8 (continuation)
 HEAD_STD_BAND = 0.03        # |std of the fresh head / (1/sqrt(512)) - 1| (512 x 70 draws)
+# "multi-device": MD_STEPS compared steps a run, then MD_TIMED_STEPS timed steps a
+# path; a sharded run within MD_FLOOR_FACTOR times its floor (a largest-of-many-elements
+# delta of one pair of runs spreads by tens of percent from one pair to the next; a
+# floor of 0 asks for bitwise equality): on one rank the plain bf16 step run twice, on
+# any mesh the plain f32 step's distance from f64; the f32 parameters within
+# MD_REPLAY_RTOL·max|p| of a single-process replay of their own gradients (AdamW steps
+# an element whose gradient is rounding noise by ±lr in any two runs that order their
+# sums differently, so parameters are not held elementwise to an independent run:
+# tests/test_torch_parallel.py's PARAM_RTOL); scores within SCORE_RTOL·max|score|
+# (tests/test_torch_parallel.py's bound)
+MD_STEPS = 2
+MD_TIMED_STEPS = 6
+MD_FLOOR_FACTOR = 2.0
+MD_REPLAY_RTOL = 1e-6
+SCORE_RTOL = 1e-5
 BENCH_BUDGET_S = 300
 WS_CLIENTS = 2
 CHAMPION = ROOT / "exports" / "champion-int4"
@@ -1657,21 +1699,28 @@ def _one_step(torch, model, batch, generator):
     return float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
+def _leaf_delta(a: dict, b: dict, floor_of: float | None = GRAD_FLOOR) -> tuple[float, str]:
+    """The largest per-leaf max|Δ|/max|a| between two {name: tensor} maps,
+    over the leaves whose max|a| is at least floor_of of the largest (None:
+    every leaf)."""
+    top = max(float(t.abs().max()) for t in a.values())
+    worst, where = 0.0, ""
+    for n, t in a.items():
+        m = float(t.abs().max())
+        if m > 0 and (floor_of is None or m >= floor_of * top):
+            r = float((t.float() - b[n].float()).abs().max()) / m
+            if r > worst:
+                worst, where = r, n
+    return worst, where
+
+
 def _step_delta(a, b) -> tuple[float, float, str]:
     """|Δ loss| and the largest per-leaf max|Δg|/max|g| (leaves whose
     gradient is at least GRAD_FLOOR of the whole gradient's largest; below
     it a leaf holds rounding noise, as the key bias does: zero in exact
     arithmetic under the softmax's shift invariance)."""
     (la, ga), (lb, gb) = a, b
-    top = max(float(g.abs().max()) for g in ga.values())
-    worst, where = 0.0, ""
-    for n, g in ga.items():
-        m = float(g.abs().max())
-        if m >= GRAD_FLOOR * top:
-            r = float((g - gb[n]).abs().max()) / m
-            if r > worst:
-                worst, where = r, n
-    return abs(la - lb), worst, where
+    return (abs(la - lb), *_leaf_delta(ga, gb))
 
 
 def noisy_features(torch, frontend, model, noise) -> None:
@@ -2479,6 +2528,340 @@ def harnesses(torch, np, kernels, runtime, validate_streaming, load_audio, manif
     return out
 
 
+def _md_inputs():
+    """The "multi-device" phase's model and batch: the dequantized
+    champion's config with finetune's dropout and SpecAugment, its
+    variables, and train_vs_plain's v1 batch."""
+    from tilawa_tpu_torch.train.checkpoint import load_variables
+    from tilawa_tpu_torch.train.data import bucketed_corpus_batches
+    from tilawa_tpu_torch.train.quantize import dequantize_variables, dequantized_config
+
+    cfg, variables = load_variables(CHAMPION)
+    config = dequantized_config(cfg, dropout=0.1, sa_freq_masks=2, sa_time_masks=10,
+                                sa_time_frac=0.05)
+    batch = next(bucketed_corpus_batches(("v1",), seed=SEED + 1, augment=False))
+    return config, dequantize_variables(variables), batch
+
+
+def _md_deltas(x: dict, y: dict) -> dict:
+    """Two runs' per-step |Δ loss| and largest per-leaf max|Δg|/max|g|
+    (leaves under GRAD_FLOOR left out, as in train_vs_plain), and after
+    the steps the largest per-leaf max|Δp|/max|p| and max|Δ| of the
+    BatchNorm stats."""
+    def is_stat(k):
+        return k.endswith((".mean", ".var"))
+
+    params = {k: v for k, v in x["full"].items() if not is_stat(k)}
+    grads = [_leaf_delta(gx, gy) for gx, gy in zip(x["grads"], y["grads"])]
+    return {"loss": [abs(a - b) for a, b in zip(x["losses"], y["losses"])],
+            "grad": [g for g, _leaf in grads], "grad_leaf": [leaf for _g, leaf in grads],
+            "params": _leaf_delta(params, y["full"], None)[0],
+            "stats": max(float((v - y["full"][k]).abs().max())
+                         for k, v in x["full"].items() if is_stat(k))}
+
+
+def multi_device_rank(rank: int, world_size: int, dev, layouts) -> dict:
+    """One rank of the "multi-device" phase (NCCL, one card a rank): the
+    dequantized champion at full width (_md_inputs) on one v1 batch, MD_STEPS
+    steps a run from the same variables with the same step generators.
+    Unsharded on this rank's card: the recipe (bf16, dropout, SpecAugment,
+    live BatchNorm) twice, whose difference is the floor of a one-rank
+    mesh; the recipe in f32 (no TF32) and in f64 (matmuls, convolutions
+    and attention in f64; the norms, the head's log-softmax and the CTC
+    loss stay f32, as in every dtype): the f32 step's distance from the
+    f64 one is the rounding that any order of f32 sums carries, the floor
+    of a mesh that splits sums. Then for each (data, model) layout over the world's
+    ranks the sharded recipe in bf16 and in f32, with per step the loss,
+    the reduced gradient (gathered, before the clip) and the launches; the
+    step ms of the bf16 paths (CUDA events, in turns), one step of each
+    under torch.profiler, and the sharded inference and rerank dispatch of
+    the batch's first 6 transcripts against the unsharded model holding
+    the same variables, in bf16 and f32. Every rank computes every number."""
+    import numpy as np
+    import torch
+
+    from tilawa_tpu_torch.models.convert import load_into
+    from tilawa_tpu_torch.models.fastconformer import FastConformerCTC
+    from tilawa_tpu_torch.ops import kernels
+    from tilawa_tpu_torch.parallel.dryrun import recognize_scores
+    from tilawa_tpu_torch.parallel.mesh import make_mesh
+    from tilawa_tpu_torch.parallel.sharding import shard_variables
+    from tilawa_tpu_torch.train.train import (TrainState, make_optimizer, make_train_step,
+                                              step_generator)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False   # f32 convolutions in f32 (bf16 unaffected)
+    config, variables, batch = _md_inputs()
+    f32 = dataclasses.replace(config, dtype=torch.float32)
+
+    def full(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
+
+    def run_steps(cfg, rows, mesh=None) -> dict:
+        model = load_into(FastConformerCTC(cfg), variables).to(dev)
+        if mesh is not None:
+            shard_variables(model, mesh)
+        opt = make_optimizer(model.parameters(), lr=3e-4, warmup_steps=1, total_steps=10)
+        step_fn = make_train_step(cfg.blank_id)
+        names = {id(p): n for n, p in model.named_parameters()}
+        update, grads = opt.step, []
+
+        def step():
+            grads.append({names[id(p)]: full(p.grad) for p in opt.params})
+            update()
+
+        opt.step = step
+        state, losses, launches = TrainState(model, opt), [], []
+        for i in range(MD_STEPS):
+            kernels.reset_launches()
+            losses.append(float(step_fn(state, rows, step_generator(SEED, i, dev))))
+            launches.append(dict(kernels.LAUNCHES))
+        opt.step = update
+        return {"state": state, "step_fn": step_fn, "losses": losses, "grads": grads,
+                "launches": launches,
+                "full": {k: full(v) for k, v in model.state_dict().items()}}
+
+    def scores(run, cfg) -> dict:
+        """The sharded forward + rerank of 6 transcripts against the
+        unsharded model with the same variables."""
+        model = run["state"].model
+        cands, cand_lens = np.asarray(batch[2][:6]), np.asarray(batch[3][:6])
+        kernels.reset_launches()
+        got = recognize_scores(model, batch[0], batch[1], cands, cand_lens)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        ref_model = FastConformerCTC(cfg).to(dev)
+        ref_model.load_state_dict({k: full(v) for k, v in model.state_dict().items()})
+        ref = recognize_scores(ref_model, batch[0], batch[1], cands, cand_lens)
+        finite = torch.isfinite(ref)
+        return {"launches": launches, "shape": tuple(got.shape),
+                "same_inf": bool(torch.equal(finite, torch.isfinite(got))),
+                "finite": int(finite.sum()),
+                "max_abs": float(ref[finite].abs().max()) if finite.any() else 0.0,
+                "max_err": float((got[finite] - ref[finite]).abs().max())
+                if finite.any() else 0.0,
+                "bitwise": bool(torch.equal(got, ref))}
+
+    def replay(run) -> float:
+        """The run's own reduced gradients through a single-process
+        optimizer from the same variables: the largest per-leaf
+        max|Δp|/max|p| against the run's parameters."""
+        model = load_into(FastConformerCTC(f32), variables).to(dev)
+        opt = make_optimizer(model.parameters(), lr=3e-4, warmup_steps=1, total_steps=10)
+        params = dict(model.named_parameters())
+        for grads in run["grads"]:
+            for name, p in params.items():
+                p.grad = grads[name].clone()
+            opt.step()
+        return _leaf_delta({n: p.detach() for n, p in params.items()}, run["full"], None)[0]
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    def profiled(run) -> dict:
+        """One more step under torch.profiler: the host's self time, the
+        device's busy time and the host ops that take the most."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run["step_fn"](run["state"], batch,
+                           step_generator(SEED, MD_STEPS + MD_TIMED_STEPS, dev))
+            torch.cuda.synchronize()
+        stats = prof.key_averages()
+        top = sorted(stats, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+        return {"host_self_ms": sum(e.self_cpu_time_total for e in stats) / 1e3,
+                "device_busy_ms": sum(device_us(e) for e in stats) / 1e3,
+                "top_host_ops": [(e.key[:60], e.self_cpu_time_total / 1e3, e.count)
+                                 for e in top]}
+
+    def timed(plain, sharded) -> dict:
+        """MD_TIMED_STEPS steps a path, the paths in turns: CUDA events
+        around each step, and the host clock from a synchronized start to a
+        synchronized end."""
+        events = {"plain": [], "sharded": []}
+        host = {"plain": [], "sharded": []}
+        for i in range(MD_TIMED_STEPS):
+            order = (("plain", plain), ("sharded", sharded))
+            for name, run in order if i % 2 == 0 else order[::-1]:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                gen = step_generator(SEED, MD_STEPS + i, dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                start.record()
+                run["step_fn"](run["state"], batch, gen)
+                end.record()
+                torch.cuda.synchronize()
+                host[name].append((time.perf_counter() - t) * 1e3)
+                events[name].append((start, end))
+        return {**{f"{name}_step_ms": [s.elapsed_time(e) for s, e in evs]
+                   for name, evs in events.items()},
+                **{f"{name}_host_ms": ms for name, ms in host.items()}}
+
+    print(f"  rank {rank} of {world_size}: batch {batch[0].shape[0]} x "
+          f"{batch[0].shape[1] / 16000:g} s", flush=True)
+    plain, again = run_steps(config, batch), run_steps(config, batch)
+    del again["state"]
+    out = {"plain_losses": plain["losses"], "floor": _md_deltas(again, plain)}
+    plain32 = run_steps(f32, batch)
+    ref64 = run_steps(dataclasses.replace(f32, dtype=torch.float64), batch)
+    del plain32["state"], ref64["state"]
+
+    out["floor32"] = _md_deltas(plain32, ref64)
+    out["bf16_vs_f32"] = _md_deltas(plain, plain32)
+    out["plain32_losses"], out["ref64_losses"] = plain32["losses"], ref64["losses"]
+    out["stats_max"] = max(float(v.abs().max()) for k, v in ref64["full"].items()
+                           if k.endswith((".mean", ".var")))
+    out["layouts"] = {}
+    plain_profile = profiled(plain)
+    for data, model_parallel in layouts:
+        mesh = make_mesh(world_size, model_parallel=model_parallel, device="cuda")
+        sharded = run_steps(config, batch, mesh)
+        sharded32 = run_steps(f32, batch, mesh)
+        lay = {"losses": sharded["losses"], "losses32": sharded32["losses"],
+               "vs_plain": _md_deltas(sharded, plain), "vs_plain_again": _md_deltas(sharded, again),
+               "bf16_vs_f32": _md_deltas(sharded, plain32),
+               "vs32": _md_deltas(sharded32, plain32), "vs64": _md_deltas(sharded32, ref64),
+               "launches": sharded["launches"], "replay": replay(sharded32),
+               "scores32": scores(sharded32, f32)}
+        del sharded32
+        lay.update(timed(plain, sharded))
+        lay["profile"], lay["plain_profile"] = profiled(sharded), plain_profile
+        lay["scores"] = scores(sharded, config)
+        out["layouts"][f"{data}x{model_parallel}"] = lay
+        del sharded
+    out["batch"] = f"{batch[0].shape[0]}x{batch[0].shape[1] / 16000:g}s"
+    out["torch"] = f"{torch.__version__} cuda {torch.version.cuda}"
+    return out
+
+
+def multi_device_phase(layouts: tuple[tuple[int, int], ...]) -> dict:
+    """multi_device_rank over data·model cards (one process a rank, one
+    timeout for all). Gates, for each layout: the f32 sharded run's
+    distance from the f64 run (losses, per-step gradients and BatchNorm
+    stats) within MD_FLOOR_FACTOR times the plain f32 run's own (the
+    loss's and the stats' floors at least `data` f32 spacings: beyond);
+    its parameters within MD_REPLAY_RTOL of the replay; on a one-rank
+    mesh, where no sum is split, the bf16 recipe against both plain runs
+    within MD_FLOOR_FACTOR times the plain-twice floor as well (CTC's CUDA
+    backward uses atomics; a floor of 0 asks for bitwise equality), while a
+    split sum flips bf16 roundings through the 17 blocks, so there the bf16
+    deltas are printed beside the f32 gate; one log-mel and no quantized
+    launch a step; the sharded scores (B, 6) with the unsharded model's
+    infinities and finite scores within SCORE_RTOL·max|score| (in bf16 on a
+    one-rank mesh, in f32 on every layout); every rank's losses equal."""
+    import numpy as np
+
+    from tilawa_tpu_torch.parallel.dryrun import spawn
+
+    world = layouts[0][0] * layouts[0][1]
+    t = time.perf_counter()
+    ranks = spawn(multi_device_rank, world, "cuda", args=(layouts,))
+    wall = time.perf_counter() - t
+    r = ranks[0]
+    print(f"  {r['torch']}; {r['batch']}; {world} rank(s) {wall:.1f} s", flush=True)
+    print(f"  plain losses bf16 {r['plain_losses']}, f32 {r['plain32_losses']}, "
+          f"f64 {r['ref64_losses']}", flush=True)
+
+    def show(what, d):
+        print(f"    {what}: |Δ loss| {d['loss']}, largest per-leaf max|Δg|/max|g| {d['grad']} "
+              f"{d['grad_leaf']}, params after {MD_STEPS} steps {d['params']:.4g}, BN stats "
+              f"{d['stats']:.4g}", flush=True)
+
+    def spacings(n: int, v: float) -> float:
+        return n * float(np.spacing(np.float32(abs(v))))
+
+    def beyond(d, floor, data=None, keys=("loss", "grad", "params", "stats")) -> list[str]:
+        """The keys of d beyond MD_FLOOR_FACTOR times floor's. With `data`
+        (the mesh's data ranks): the loss and the BatchNorm stats are sums
+        split over them, which adds up to `data` roundings of the total, so
+        their floors are at least `data` f32 spacings of the loss and of
+        the largest stat."""
+        def listed(x):
+            return x if isinstance(x, list) else [x]
+
+        floor = dict(floor)
+        if data is not None:
+            floor["loss"] = [max(f, spacings(data, v))
+                             for f, v in zip(floor["loss"], r["ref64_losses"])]
+            floor["stats"] = max(floor["stats"], spacings(data, r["stats_max"]))
+        return [key for key in keys
+                if not all(x <= MD_FLOOR_FACTOR * f
+                           for x, f in zip(listed(d[key]), listed(floor[key])))]
+
+    def scores_ok(sc, rows) -> bool:
+        return sc["shape"] == (rows, 6) and sc["same_inf"] \
+            and sc["max_err"] <= SCORE_RTOL * sc["max_abs"]
+
+    show("bf16 plain again vs plain (floor of one rank)", r["floor"])
+    show("f32 plain vs f64 (floor of split sums)", r["floor32"])
+    show("bf16 plain vs f32 plain (bf16's own rounding, printed)", r["bf16_vs_f32"])
+    rows = int(r["batch"].split("x")[0])
+    summary = {"bucket": r["batch"], "floor": r["floor"], "floor32": r["floor32"],
+               "bf16_vs_f32": r["bf16_vs_f32"],
+               "child_s": wall, "layouts": {}}
+    bad = []
+    for name, lay in r["layouts"].items():
+        one_rank = name == "1x1"
+        print(f"  mesh data x model {name}: losses bf16 {lay['losses']}, f32 {lay['losses32']}",
+              flush=True)
+        for what, d in (("bf16 sharded vs plain", lay["vs_plain"]),
+                        ("bf16 sharded vs plain again", lay["vs_plain_again"]),
+                        ("bf16 sharded vs f32 plain", lay["bf16_vs_f32"]),
+                        ("f32 sharded vs plain", lay["vs32"]),
+                        ("f32 sharded vs f64", lay["vs64"])):
+            show(what, d)
+        for path in ("plain", "sharded"):
+            ms, hs = sorted(lay[f"{path}_step_ms"]), sorted(lay[f"{path}_host_ms"])
+            print(f"    {path} step ms (CUDA events): "
+                  f"{[round(x, 2) for x in lay[f'{path}_step_ms']]}, median "
+                  f"{ms[len(ms) // 2]:.2f}; host clock median {hs[len(hs) // 2]:.2f}", flush=True)
+        for path, pr in (("plain", lay["plain_profile"]), ("sharded", lay["profile"])):
+            print(f"    {path} step under torch.profiler: host self time "
+                  f"{pr['host_self_ms']:.2f} ms, device busy {pr['device_busy_ms']:.2f} ms; "
+                  f"top host ops (self ms, calls):", flush=True)
+            for key, ms, count in pr["top_host_ops"]:
+                print(f"      {ms:8.3f} ms  x{count:<5d} {key}", flush=True)
+        for tag, sc in (("bf16", lay["scores"]), ("f32", lay["scores32"])):
+            print(f"    {tag} scores {sc['shape']}: max|Δ| {sc['max_err']:.4g} of max|score| "
+                  f"{sc['max_abs']:.4g} ({sc['finite']} finite), bitwise {sc['bitwise']}; "
+                  f"launches {sc['launches']}", flush=True)
+        print(f"    launches a sharded step {lay['launches']}; f32 parameters against the "
+              f"replay of their gradients: largest per-leaf max|Δp|/max|p| {lay['replay']:.4g}",
+              flush=True)
+        bad += [(name, "f32", key) for key in beyond(lay["vs64"], r["floor32"],
+                                                     int(name.split("x")[0]),
+                                                     ("loss", "grad", "stats"))]
+        if lay["replay"] > MD_REPLAY_RTOL:
+            bad.append((name, "replay", lay["replay"]))
+        if one_rank:
+            bad += [(name, what, key) for what in ("vs_plain", "vs_plain_again")
+                    for key in beyond(lay[what], r["floor"])]
+        if any(n != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 0} for n in lay["launches"]):
+            bad.append((name, "launches", lay["launches"]))
+        if not scores_ok(lay["scores32"], rows) or one_rank and not scores_ok(lay["scores"], rows):
+            bad.append((name, "scores", None))
+        if any(o["layouts"][name]["losses"] != lay["losses"] for o in ranks[1:]):
+            bad.append((name, "ranks disagree", [o["layouts"][name]["losses"] for o in ranks]))
+        med = {path: sorted(lay[f"{path}_step_ms"])[len(lay[f"{path}_step_ms"]) // 2]
+               for path in ("plain", "sharded")}
+        summary["layouts"][name] = {
+            "step_ms": med["sharded"], "plain_step_ms": med["plain"],
+            "step_ms_all": lay["sharded_step_ms"], "plain_step_ms_all": lay["plain_step_ms"],
+            "host_ms_all": lay["sharded_host_ms"], "plain_host_ms_all": lay["plain_host_ms"],
+            **{k: lay[k] for k in ("profile", "plain_profile", "vs_plain", "vs_plain_again",
+                                   "bf16_vs_f32", "vs32", "vs64", "losses", "losses32",
+                                   "replay")},
+            "scores_max_err": lay["scores"]["max_err"], "scores_bitwise": lay["scores"]["bitwise"],
+            "scores32_max_err": lay["scores32"]["max_err"],
+            "log_mel_launches": sum(n["log_mel"] for n in lay["launches"])
+            + lay["scores"]["launches"]["log_mel"]}
+    if bad:
+        raise AssertionError(f"the sharded step differs from the plain one: {bad}")
+    summary["log_mel_launches"] = sum(v["log_mel_launches"] for v in summary["layouts"].values())
+    return summary
+
+
 def _flat_leaves(tree: dict, prefix: tuple = ()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -2517,6 +2900,7 @@ def run(bundles: str | None = None) -> int:
     from tilawa_tpu_torch.io.bundle import load_variables, shipped_checkpoint
     from tilawa_tpu_torch.ops import frontend, kernels, quant
     from tilawa_tpu_torch.ops.ctc import collapse_ctc
+    from tilawa_tpu_torch.parallel.dryrun import dryrun_multichip
     from tilawa_tpu_torch.pipeline import rerank
     from tilawa_tpu_torch.pipeline.predict import Recognizer
     from tilawa_tpu_torch.pipeline.runtime import EncoderRuntime, StreamingEncoderCache
@@ -2721,6 +3105,14 @@ def run(bundles: str | None = None) -> int:
             ph_train = phoneme_train_phase(torch, np, kernels, CHAMPION, Path(tmp) / "phoneme",
                                            PHONEME_TRAIN_STEPS, keeps_head=False)
             entries[1]["path_launches"]["train.phoneme"] = ph_train["log_mel_launches"]
+    with phase("multi-device"):
+        multi = multi_device_phase(((1, 1),))
+        entries[1]["path_launches"]["multi-device"] = multi["log_mel_launches"]
+        t = time.perf_counter()
+        multi["cpu_dryrun"] = dryrun_multichip(8, device="cpu")
+        multi["cpu_dryrun_s"] = time.perf_counter() - t
+        print(f"  CPU (8 gloo ranks on the host, not the card; {multi['cpu_dryrun_s']:.1f} s): "
+              f"{multi['cpu_dryrun']}", flush=True)
     print("chip_smoke: the phoneme-int8 and heldout-int4 bundles run under "
           "--bundles phoneme-heldout, from a copy of the repository that holds them",
           flush=True)
@@ -2738,7 +3130,7 @@ def run(bundles: str | None = None) -> int:
         "distill_first_kl_full_rows": distilled["first_kl_full_rows"], "vs_plain": versus,
         "phoneme_step_ms": ph_train["step_ms"], "phoneme_losses": ph_train["losses"],
         "phoneme_sync_sites": ph_train["sync_sites"], "phoneme_oracle_lattice": lattice,
-        "device": kind, "nvidia_smi": smi}}), flush=True)
+        "multi_device": multi, "device": kind, "nvidia_smi": smi}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys}, **{k: v for k, v in e.items() if k not in keys}}
@@ -2851,15 +3243,60 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
     return 0
 
 
+def run_layouts(spec: str) -> int:
+    """--layouts: the "multi-device" phase alone over every card present,
+    one mesh a layout (DATAxMODEL, comma-separated; each must use every
+    card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
+        return 1
+    layouts = tuple(tuple(int(n) for n in s.split("x")) for s in spec.split(","))
+    count = torch.cuda.device_count()
+    if any(len(lay) != 2 or lay[0] * lay[1] != count for lay in layouts):
+        print(f"chip_smoke: --layouts {spec} must use all {count} cards in each layout",
+              file=sys.stderr, flush=True)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from tilawa_tpu_torch.ops import kernels
+
+    with phase("device"):
+        kind = torch.cuda.get_device_name(0)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()
+        print(f"  torch {torch.__version__} cuda {torch.version.cuda}; {count} x {kind}; "
+              f"nvidia-smi: {smi}", flush=True)
+    with phase("build"):
+        for name, r in kernels.build().items():
+            print(f"  {name}: {r['seconds']:.1f} s -> {Path(r['path']).name}", flush=True)
+    with phase("multi-device"):
+        multi = multi_device_phase(layouts)
+    print(json.dumps({"multi_device": multi, "device": kind, "count": count,
+                      "nvidia_smi": smi}), flush=True)
+    print(smi[0], flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+          flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="smoke run of the port on one CUDA card")
-    parser.add_argument("--bundles", choices=sorted(BUNDLE_SECTIONS), default=None,
-                        help="run the section of these bundles instead of the default phases "
-                             "(a copy of the repository that holds them)")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--bundles", choices=sorted(BUNDLE_SECTIONS), default=None,
+                      help="run the section of these bundles instead of the default phases "
+                           "(a copy of the repository that holds them)")
+    mode.add_argument("--layouts", default=None, metavar="DATAxMODEL,...",
+                      help="run the multi-device phase alone over every card present, one "
+                           "mesh a layout, e.g. 2x2,1x4,4x1 on four cards")
     args = parser.parse_args(argv)
     try:
+        if args.layouts is not None:
+            return run_layouts(args.layouts)
         return run(args.bundles)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED in {e}", file=sys.stderr, flush=True)

@@ -479,8 +479,9 @@ def test_wrappers_raise_on_inputs_that_need_a_gradient():
 
 def test_port_names_no_optax():
     """tilawa_tpu_torch and chip_smoke name none of jax, flax, optax,
-    msgpack or tilawa_tpu in an import (the training modules included),
-    and importing the training modules loads none of them."""
+    msgpack or tilawa_tpu in an import (the training and parallel modules
+    included), and importing the training and parallel modules loads none
+    of them."""
     forbidden = ("jax", "flax", "optax", "msgpack", "tilawa_tpu")
     for path in [*(REPO / "tilawa_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
@@ -489,7 +490,8 @@ def test_port_names_no_optax():
                 assert words[1].split(".")[0] not in forbidden, f"{path}: {line}"
     modules = [f"tilawa_tpu_torch.train.{m}" for m in (
         "train", "finetune", "distill", "export", "fit_report", "align", "data", "checkpoint",
-        "quantize")] + ["tilawa_tpu_torch.ops.specaug"]
+        "quantize")] + ["tilawa_tpu_torch.ops.specaug"] + [
+        f"tilawa_tpu_torch.parallel.{m}" for m in ("mesh", "sharding", "dryrun")]
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             f"print(json.dumps(sorted(m for m in sys.modules "

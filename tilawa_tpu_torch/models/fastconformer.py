@@ -162,6 +162,14 @@ def _param(t: torch.Tensor | None) -> nn.Parameter | None:
     return None if t is None else nn.Parameter(t)
 
 
+def _local(t: torch.Tensor | None) -> torch.Tensor | None:
+    """A variable's part on this rank: for a DTensor variable (a model
+    sharded by parallel/sharding.py) the plain tensor that shard_variables
+    made once over its local storage (`rank_part`), else the variable
+    itself."""
+    return getattr(t, "rank_part", t)
+
+
 def dropout(x: torch.Tensor, keep: torch.Tensor | None, rate: float) -> torch.Tensor:
     """flax nn.Dropout with a drawn keep mask: x / (1 - rate) where kept,
     0 elsewhere, in x's dtype; keep=None is the identity."""
@@ -171,18 +179,34 @@ def dropout(x: torch.Tensor, keep: torch.Tensor | None, rate: float) -> torch.Te
 
 
 class Dense(nn.Module):
-    """flax nn.Dense: kernel [K, N] (+ bias), all cast to the dtype."""
+    """flax nn.Dense: kernel [K, N] (+ bias), all cast to the dtype.
+
+    On a mesh (parallel/sharding.py sets `split` and `axes`) a "col" layer
+    holds its columns of the kernel: it takes its input through
+    axes.model_copy and adds its own columns of the bias; a "row" layer
+    holds its rows and gets its part of x's columns: it sums the partial
+    product over "model", then adds the whole bias."""
 
     def __init__(self, k: int, n: int, cfg: FastConformerConfig, use_bias: bool = True):
         super().__init__()
         self.dtype = cfg.dtype
         self.kernel = _param(_zeros(k, n))
         self.bias = _param(_zeros(n) if use_bias else None)
+        self.split = None
+        self.axes = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        kernel = _local(self.kernel)
+        if self.split == "col":
+            x = self.axes.model_copy(x)
+        y = torch.matmul(x.to(self.dtype), kernel.to(self.dtype))
+        if self.split == "row":
+            y = self.axes.model_sum(y)
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            bias = _local(self.bias)
+            if self.split == "col":
+                bias = bias[self.axes.model_slice(bias.shape[0])]
+            y = y + bias.to(self.dtype)
         return y
 
 
@@ -265,7 +289,7 @@ class LayerNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * _local(self.scale)) + _local(self.bias)
         return y.to(self.dtype)
 
 
@@ -273,7 +297,10 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over (batch, time) that ignores padded frames. With
     `batch_stats` None it normalizes with the running stats; with a list it
     normalizes with the batch's masked mean and biased variance (f32) and
-    appends them, detached, for update_running."""
+    appends them, detached, for update_running. On a mesh (`axes` set by
+    parallel/sharding.py) x holds this data rank's rows: the masked sum and
+    count, then the centred square sum, are summed over "data", so every
+    rank normalizes with (and keeps) the global batch's statistics."""
 
     def __init__(self, c: int, dtype: torch.dtype, eps: float = 1e-5,
                  momentum: float = 0.99):
@@ -285,26 +312,29 @@ class MaskedBatchNorm(nn.Module):
         self.bias = _param(_zeros(c))
         self.register_buffer("mean", _zeros(c))
         self.register_buffer("var", torch.ones(c))
+        self.axes = None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 batch_stats: list | None = None) -> torch.Tensor:
         """x [B, T, C], mask [B, T, 1] bool."""
         if batch_stats is None:
-            mean, var = self.mean, self.var
+            mean, var = _local(self.mean), _local(self.var)
         else:
-            cnt = torch.clamp(mask.sum(), min=1).float()
+            total = (lambda s: s) if self.axes is None else self.axes.data_sum
+            cnt = torch.clamp(total(mask.sum()), min=1).float()
             xf = x.float()
-            mean = torch.where(mask, xf, 0.0).sum(dim=(0, 1)) / cnt
-            var = (torch.where(mask, xf - mean, 0.0) ** 2).sum(dim=(0, 1)) / cnt
+            mean = total(torch.where(mask, xf, 0.0).sum(dim=(0, 1))) / cnt
+            var = total((torch.where(mask, xf - mean, 0.0) ** 2).sum(dim=(0, 1))) / cnt
             batch_stats.append((mean.detach(), var.detach()))
         y = (x.float() - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.scale + self.bias).to(self.dtype)
+        return (y * _local(self.scale) + _local(self.bias)).to(self.dtype)
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """ra = momentum·ra + (1 - momentum)·batch, as flax's MaskedBatchNorm."""
-        self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
-        self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+        ra_mean, ra_var = _local(self.mean), _local(self.var)
+        ra_mean.copy_(self.momentum * ra_mean + (1 - self.momentum) * mean)
+        ra_var.copy_(self.momentum * ra_var + (1 - self.momentum) * var)
 
 
 class Conv(nn.Module):
@@ -321,11 +351,12 @@ class Conv(nn.Module):
         self.bias = _param(_zeros(c_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = F.conv2d if self.kernel.dim() == 4 else F.conv1d
-        y = conv(x.to(self.dtype), self.kernel.to(self.dtype), None,
+        kernel = _local(self.kernel)
+        conv = F.conv2d if kernel.dim() == 4 else F.conv1d
+        y = conv(x.to(self.dtype), kernel.to(self.dtype), None,
                  self.stride, self.padding, 1, self.groups)
         shape = (1, -1) + (1,) * (y.dim() - 2)
-        return y + self.bias.to(self.dtype).view(shape)
+        return y + _local(self.bias).to(self.dtype).view(shape)
 
 
 def _stride2_len(length):
@@ -425,7 +456,9 @@ def _row_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class RelPosSelfAttention(nn.Module):
-    """Transformer-XL relative-position MHSA with u/v biases."""
+    """Transformer-XL relative-position MHSA with u/v biases. On a mesh
+    (`axes` set by parallel/sharding.py) q/k/v/pos give this model rank's
+    heads, which add their own rows of the replicated u/v biases."""
 
     def __init__(self, cfg: FastConformerConfig):
         super().__init__()
@@ -437,6 +470,7 @@ class RelPosSelfAttention(nn.Module):
         self.out = make_dense(cfg, d, d)
         self.bias_u = _param(_zeros(h, d // h))
         self.bias_v = _param(_zeros(h, d // h))
+        self.axes = None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, pos: torch.Tensor,
                 keep: torch.Tensor | None = None) -> torch.Tensor:
@@ -446,14 +480,19 @@ class RelPosSelfAttention(nn.Module):
         cfg, dt = self.cfg, self.cfg.dtype
         b, t, d = x.shape
         h, dh = cfg.num_heads, d // cfg.num_heads
+        bias_u, bias_v = _local(self.bias_u), _local(self.bias_v)
+        if self.axes is not None:   # this model rank's heads
+            heads = self.axes.model_slice(h)
+            h = heads.stop - heads.start
+            bias_u, bias_v = bias_u[heads], bias_v[heads]
 
         q = self.q(x).view(b, t, h, dh)
         k = self.k(x).view(b, t, h, dh)
         v = self.v(x).view(b, t, h, dh)
         p = self.pos(pos).view(2 * t - 1, h, dh)
 
-        qu = (q + self.bias_u.to(dt)).transpose(1, 2)          # [B,H,T,dh]
-        qv = (q + self.bias_v.to(dt)).transpose(1, 2)
+        qu = (q + bias_u.to(dt)).transpose(1, 2)               # [B,H,T,dh]
+        qv = (q + bias_v.to(dt)).transpose(1, 2)
         content = _row_matmul(qu, k.permute(0, 2, 3, 1))        # [B,H,T,T]
         qp = _row_matmul(qv, p.permute(1, 2, 0))                # [B,H,T,2T-1]
         scores = (content + _rel_shift(qp, t)).float() / math.sqrt(dh)
@@ -462,7 +501,7 @@ class RelPosSelfAttention(nn.Module):
         scores = torch.where(key_mask, scores, -1e30)
         attn = dropout(torch.softmax(scores, dim=-1).to(dt), keep, cfg.dropout)
         out = _row_matmul(attn, v.transpose(1, 2))              # [B,H,T,dh]
-        return self.out(out.transpose(1, 2).reshape(b, t, d))
+        return self.out(out.transpose(1, 2).reshape(b, t, h * dh))
 
 
 class ConvModule(nn.Module):
@@ -508,20 +547,32 @@ class ConformerBlock(nn.Module):
 
 
 def draw_block_masks(cfg: FastConformerConfig, b: int, t: int,
-                     generator: torch.Generator, device: torch.device) -> tuple:
+                     generator: torch.Generator, device: torch.device, axes=None) -> tuple:
     """One block's dropout keep masks, in the order the block applies them:
-    ff1 (hidden, out), attention weights, conv out, ff2 (hidden, out)."""
+    ff1 (hidden, out), attention weights, conv out, ff2 (hidden, out).
+    With `axes` (a mesh), b is the global batch: the masks are drawn at the
+    global shape and this rank's rows, hidden columns and heads kept."""
     d, hid = cfg.d_model, cfg.d_model * cfg.ff_expansion
     shapes = ((b, t, hid), (b, t, d), (b, cfg.num_heads, t, t), (b, t, d), (b, t, hid), (b, t, d))
     keep = 1.0 - cfg.dropout
-    return tuple(
+    masks = tuple(
         torch.rand(s, generator=generator, device=device) < keep for s in shapes
     )
+    if axes is None:
+        return masks
+    r, cols, heads = axes.rows(b), axes.model_slice(hid), axes.model_slice(cfg.num_heads)
+    return (masks[0][r, :, cols], masks[1][r], masks[2][r, heads], masks[3][r],
+            masks[4][r, :, cols], masks[5][r])
 
 
 class FastConformerCTC(nn.Module):
     """Raw audio [B, N] f32 + sample counts [B] → (CTC log-probs
-    [B, T_enc, V] f32, encoder frame counts [B] int32)."""
+    [B, T_enc, V] f32, encoder frame counts [B] int32).
+
+    On a mesh (parallel/sharding.py shard_variables sets `axes`) audio and
+    lengths are this data rank's rows of a global batch split evenly over
+    "data", and so are the outputs; the frontend and the subsampling run on
+    them alone, and the random masks are drawn for the global batch."""
 
     def __init__(self, cfg: FastConformerConfig):
         super().__init__()
@@ -535,6 +586,7 @@ class FastConformerCTC(nn.Module):
         self.subsampling = ConvSubsampling(cfg)
         self.blocks = nn.ModuleList(ConformerBlock(cfg) for _ in range(cfg.num_layers))
         self.ctc_head = make_dense(cfg, cfg.d_model, cfg.num_classes)
+        self.axes = None
 
     def tables(self) -> MelTables:
         return MelTables(*(getattr(self, f"mel_{name}") for name in MelTables._fields))
@@ -561,11 +613,14 @@ class FastConformerCTC(nn.Module):
         feats, feat_lengths = log_mel_spectrogram(
             audio, lengths, self.tables(), use_kernel=cfg.use_pallas
         )
+        axes = self.axes
         if not deterministic and (cfg.sa_freq_masks or cfg.sa_time_masks):
+            rows = None if axes is None else axes.rows(axes.data_size * feats.shape[0])
             feats = spec_augment(
-                feats, feat_lengths, generator,
+                feats, feat_lengths if axes is None else axes.data_gather(feat_lengths),
+                generator,
                 freq_masks=cfg.sa_freq_masks, freq_width=cfg.sa_freq_width,
-                time_masks=cfg.sa_time_masks, time_frac=cfg.sa_time_frac,
+                time_masks=cfg.sa_time_masks, time_frac=cfg.sa_time_frac, rows=rows,
             )
         x = self.subsampling(feats, feat_lengths)
         enc_lengths = subsampled_length(feat_lengths, cfg.subsampling_factor)
@@ -577,8 +632,9 @@ class FastConformerCTC(nn.Module):
         # blocking), then cast on the device.
         pos = upload(rel_positional_encoding(t, cfg.d_model), x.device).to(cfg.dtype)
         drop = not deterministic and cfg.dropout > 0
+        b = x.shape[0] if axes is None else x.shape[0] * axes.data_size
         for block in self.blocks:
-            keep = draw_block_masks(cfg, x.shape[0], t, generator, x.device) if drop else None
+            keep = draw_block_masks(cfg, b, t, generator, x.device, axes) if drop else None
             stats = None if use_running_average else []
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(block, x, mask, pos, keep, stats, use_reentrant=False)

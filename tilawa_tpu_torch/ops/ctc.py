@@ -79,6 +79,24 @@ def ctc_forward_scores(
     return torch.where(feasible, norm, torch.inf)
 
 
+def ctc_forward_scores_batch(
+    log_probs: torch.Tensor,   # [B, T, V] float32
+    t_valid: torch.Tensor,     # [B] true frame counts
+    tokens: torch.Tensor,      # [C, L] int, zero-padded
+    lengths: torch.Tensor,     # [C] int
+    blank_id: int,
+) -> torch.Tensor:
+    """ctc_forward_scores of every candidate against each of B log-prob
+    matrices → [B, C] (the JAX package's vmap over B, one row at a time
+    here). Its caller is the sharded dispatch (parallel/dryrun.py
+    recognize_scores), which calls it on each data rank's rows."""
+    rows = [ctc_forward_scores(lp, tv, tokens, lengths, blank_id)
+            for lp, tv in zip(log_probs, t_valid.tolist())]
+    if not rows:
+        return torch.empty((0, tokens.shape[0]), dtype=log_probs.dtype, device=log_probs.device)
+    return torch.stack(rows)
+
+
 def collapse_ctc(ids, blank_id: int) -> list[int]:
     """CTC collapse: drop repeats then blanks."""
     ids = np.asarray(ids)

@@ -15,7 +15,8 @@ main path went through the kernels.
 The kernels compute forward only: a wrapper handed a tensor that needs a
 gradient under grad mode raises (forward_only), on every device, rather
 than return an output with no grad_fn that would silently drop the
-gradient.
+gradient. A wrapper handed a DTensor raises too, rather than run on its
+local part silently.
 """
 
 from __future__ import annotations
@@ -147,7 +148,12 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
 
 
 def forward_only(what: str, *tensors) -> None:
-    """Raise if autograd would need a gradient through a kernel's inputs."""
+    """Raise if an input is a DTensor (a kernel reads plain memory through
+    ctypes: a sharded caller hands it its local part itself), or if
+    autograd would need a gradient through a kernel's inputs."""
+    if any(hasattr(t, "to_local") for t in tensors):
+        raise TypeError(f"{what} takes plain tensors, not a DTensor: a sharded caller "
+                        "passes its local part (DTensor.to_local())")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what} computes forward only and has no backward: an input requires a "

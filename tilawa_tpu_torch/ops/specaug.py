@@ -33,13 +33,20 @@ def spec_augment(
     time_masks: int = 10,
     time_frac: float = 0.05,
     mask_value: float = 0.0,
+    rows: slice | None = None,
 ) -> torch.Tensor:
     """Mask `freq_masks` random mel bands and `time_masks` random time
-    stripes (each up to `time_frac` of the example's valid length)."""
+    stripes (each up to `time_frac` of the example's valid length).
+
+    rows: feats holds only these rows of the batch whose `lengths` are
+    given (a data-parallel rank's part): the masks are drawn for the whole
+    batch, the same on every rank, and this part's rows applied."""
     if freq_masks == 0 and time_masks == 0:
         return feats
-    b, t, f = feats.shape
+    b = lengths.shape[0]
+    t, f = feats.shape[1:]
     dev = feats.device
+    part = slice(None) if rows is None else rows
 
     def uniform(n: int) -> torch.Tensor:
         return torch.rand((b, n), generator=generator, device=dev, dtype=torch.float32)
@@ -49,7 +56,7 @@ def spec_augment(
         fw = (uniform(freq_masks) * (freq_width + 1)).to(torch.int32)
         fs = (uniform(freq_masks) * torch.clamp(f - fw, min=1).float()).to(torch.int32)
         fmask = _interval_mask(f, fs, fw)                              # [B, F]
-        masked = torch.where(fmask[:, None, :], mask_value, masked)
+        masked = torch.where(fmask[part, None, :], mask_value, masked)
     if time_masks:
         length = lengths.to(torch.int32)[:, None]
         max_w = torch.clamp(length.float() * time_frac, min=1.0)
@@ -58,5 +65,5 @@ def spec_augment(
         tmask = _interval_mask(t, ts, tw)                              # [B, T]
         # never mask beyond the valid length (padding is already zero)
         tmask &= torch.arange(t, device=dev)[None, :] < length
-        masked = torch.where(tmask[:, :, None], mask_value, masked)
+        masked = torch.where(tmask[part, :, None], mask_value, masked)
     return masked

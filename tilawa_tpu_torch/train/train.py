@@ -1,10 +1,19 @@
 """CTC training loop: AdamW with warmup-cosine, f32 master weights.
 
-Port of tilawa_tpu/train/train.py on one device (the multi-device step is
-not ported). The model holds the state: its f32 Parameters are the params,
-its BatchNorm buffers the batch_stats, the optimizer's state the opt_state;
-the compute dtype (bfloat16 for the champion) is cast inside each layer,
-as flax does.
+Port of tilawa_tpu/train/train.py. The model holds the state: its f32
+Parameters are the params, its BatchNorm buffers the batch_stats, the
+optimizer's state the opt_state; the compute dtype (bfloat16 for the
+champion) is cast inside each layer, as flax does.
+
+With a mesh (parallel/mesh.py make_mesh; one process a device) the step is
+the JAX package's SPMD step over ("data", "model"): the variables are
+DTensors placed by parallel/sharding.py, every rank reads the same global
+batch and runs its own rows, with the FFN and attention matmuls split over
+"model". It computes the function the single-device step computes: the
+loss is the global batch mean, the gradients are summed over "data"
+(reduce_gradients), the global-norm clip takes the norm of the full
+gradient (each replicated leaf counted once) and AdamW (foreach, never
+fused) updates each rank's part.
 
 The optimizer is optax's chain written out (make_optimizer):
 clip_by_global_norm(1.0) — g scaled by max_norm/‖g‖ only where ‖g‖ ≥
@@ -90,8 +99,13 @@ def warmup_cosine_decay_schedule(
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm in place: every g scaled by max_norm / ‖g‖
     where the global norm ‖g‖ ≥ max_norm, unchanged (times 1.0) below it;
-    no epsilon, no host sync. Returns the norm."""
+    no epsilon, no host sync. Returns the norm. DTensor gradients (a
+    sharded model) give the full gradient's norm and scale their local
+    parts."""
     norm = torch.nn.utils.get_total_norm(grads)
+    if hasattr(norm, "full_tensor"):
+        norm = norm.full_tensor()
+        grads = [g.to_local() for g in grads]
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -107,6 +121,8 @@ class Optimizer:
         self.schedule = schedule
         self.max_norm = max_norm
         self.count = 0
+        # PyTorch's default picks foreach on CUDA (DTensors included) and
+        # never the fused kernel
         self.adamw = torch.optim.AdamW(
             self.params, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
@@ -229,10 +245,20 @@ def make_train_step(blank_id: int, freeze_bn: bool = False):
     running stats that inference depends on (tilawa_tpu train.py:68-79).
 
     The step takes a numpy batch (audio, audio_lens, tokens, token_lens)
-    and returns the loss as a device tensor."""
+    and returns the loss as a device tensor. As the JAX package's jitted
+    step takes its sharding from its inputs, this one takes it from the
+    model: where parallel/sharding.py shard_variables has placed the
+    model's variables on a mesh (`model.axes` set), every rank gives the
+    same global batch and generator, uploads its rows, takes its share of
+    the global mean CTC loss on local tensors (F.ctc_loss takes no
+    DTensor), reduces the gradients and returns the global loss."""
 
     def train_step(state: TrainState, batch, generator: torch.Generator) -> torch.Tensor:
         model, opt = state.model, state.optimizer
+        axes = model.axes
+        global_rows = len(batch[1])
+        if axes is not None:
+            batch = tuple(np.asarray(a)[axes.rows(global_rows)] for a in batch)
         _audio, audio_lens, tokens, token_lens = batch
         audio, lengths = _upload_batch(batch, model.mel_window.device)
         opt.zero_grad()
@@ -240,9 +266,18 @@ def make_train_step(blank_id: int, freeze_bn: bool = False):
             audio, lengths, deterministic=False, use_running_average=freeze_bn,
             generator=generator,
         )
-        loss = ctc_loss_fn(log_probs, encoder_lengths(audio_lens), tokens, token_lens,
-                           blank_id)
+        if axes is None:
+            loss = ctc_loss_fn(log_probs, encoder_lengths(audio_lens), tokens, token_lens,
+                               blank_id)
+        else:
+            loss = ctc_losses(log_probs, encoder_lengths(audio_lens), tokens, token_lens,
+                              blank_id).sum() / global_rows
         loss.backward()
+        if axes is not None:
+            from tilawa_tpu_torch.parallel.sharding import reduce_gradients
+
+            reduce_gradients(model)
+            loss = axes.data_sum(loss.detach())
         opt.step()
         state.step += 1
         return loss.detach()
@@ -304,13 +339,18 @@ def train(
     warmup_steps: int = 100,
     device: str | torch.device = "cuda",
     callback: Callable | None = None,
+    mesh=None,
 ):
     """Run the training loop; returns (model, final state, loss history).
 
     init_from: checkpoint dir to warm-start params/batch_stats from (fresh
     optimizer state — continuation training, not exact resume). callback,
     if given, is called after every step as callback(i, state, batch,
-    loss) with the loss still on the device."""
+    loss) with the loss still on the device. mesh: a parallel/mesh.py
+    mesh that this process is a rank of (device: the rank's own); every
+    rank runs train() with the same arguments and batches, the variables
+    are sharded on the mesh and the results equal train() without one.
+    Rank 0 alone prints and writes checkpoints."""
     from tilawa_tpu_torch.models.convert import load_into
 
     dev = resolve_device(device)
@@ -322,6 +362,12 @@ def train(
         if ckpt_config != config:
             raise ValueError(f"init_from config mismatch: {ckpt_config} != {config}")
         load_into(model, variables)
+    lead = True
+    if mesh is not None:
+        from tilawa_tpu_torch.parallel.sharding import shard_variables
+
+        shard_variables(model, mesh)
+        lead = torch.distributed.get_rank() == 0
     optimizer = make_optimizer(model.parameters(), lr=lr, total_steps=steps,
                                warmup_steps=warmup_steps)
     state = TrainState(model, optimizer)
@@ -338,10 +384,11 @@ def train(
             lv = float(loss)
             history.append(lv)
             shape = batch[0].shape
-            print(
-                f"step {i:5d}  loss {lv:8.4f}  "
-                f"[{shape[0]}x{shape[1]//16000}s]  ({time.time()-t0:.0f}s)", flush=True,
-            )
+            if lead:
+                print(
+                    f"step {i:5d}  loss {lv:8.4f}  "
+                    f"[{shape[0]}x{shape[1]//16000}s]  ({time.time()-t0:.0f}s)", flush=True,
+                )
         if checkpoint_dir and (i + 1) % checkpoint_every == 0:
             _save(checkpoint_dir, config, model, i + 1)
     if checkpoint_dir:
@@ -349,12 +396,21 @@ def train(
     return model, state, history
 
 
-def _save(checkpoint_dir, config, model, step) -> Path:
+def _save(checkpoint_dir, config, model, step) -> Path | None:
+    """Write the model's variables as a checkpoint. A sharded model's
+    full tensors are gathered on every rank (a collective) and rank 0
+    alone writes them; the other ranks return None."""
     from tilawa_tpu_torch.models.convert import variables_from_torch
     from tilawa_tpu_torch.train.checkpoint import save_variables
 
+    state = model.state_dict()
+    if model.axes is not None:
+        state = {k: v.full_tensor() if hasattr(v, "full_tensor") else v
+                 for k, v in state.items()}
+        if torch.distributed.get_rank() != 0:
+            return None
     path = save_variables(Path(checkpoint_dir) / f"step_{step:06d}", config,
-                          variables_from_torch(model))
+                          variables_from_torch(state))
     print(f"checkpoint -> {path}", flush=True)
     return path
 
