@@ -12,7 +12,7 @@ Phases (each prints its elapsed seconds; any failure exits non-zero
 without the final line):
 
   1. device      card name, count, nvidia-smi name and power limit
-  2. build       nvcc the three hand-written kernels (in parallel) for
+  2. build       nvcc the four hand-written kernels (in parallel) for
                  sm_90a; ptxas registers / shared memory / spills
   3. kernels     each kernel against its plain PyTorch version on the card
                  at every shape the paths launch: the int4 and int8 layers
@@ -25,13 +25,20 @@ without the final line):
                  bucket of the batched eval, every training bucket), its
                  frames bitwise
                  independent of B and of their offset; int4 and the log-mel
-                 also at the context sweep's M = B·T and (B, N); timings of
-                 the kernel, the plain version and a one-call library
-                 yardstick
+                 also at the context sweep's M = B·T and (B, N); the CTC
+                 lattice at the rerank's chunks (T 512, C 512, L_pad 128;
+                 T 1024, C 64, L_pad 512), the phoneme shape (V 70, L_pad
+                 3,072, a row at L 2,598), the tracker's C = 2 and the batch
+                 form at B = 4 (equal +inf patterns, 1e-5, equal argmin);
+                 timings of the kernel, the plain version and a one-call
+                 library yardstick
   4. main path   champion-int4 Recognizer(tta=True).predict over wav clips
                  of benchmark/test_corpus (each must match the manifest),
                  plus the >25 s transcribe fallback; launch counters are
-                 zeroed just before and read just after
+                 zeroed just before and read just after: one lattice launch
+                 a scorer chunk, two recorded chunks replayed on the plain
+                 lattice, every lattice call on the plain path timed beside
+                 the kernel path's
   5. plain path  the same model with the plain ops on the card for one
                  clip: same collapsed greedy ids, max |Δ log-prob| printed
   6. trace       a short and a long clip's forward and predict on the host
@@ -42,7 +49,8 @@ without the final line):
                  v1 sample (counters zeroed just before, read just after):
                  every scored clip matches its manifest (recall, precision,
                  sequence accuracy 1.0), N >= 37, dispositions, latency
-                 p50/mean/p90, TILAWA_PROFILE stage medians, agreement with
+                 p50/mean/p90, TILAWA_PROFILE stage medians, one lattice
+                 launch a scorer chunk, agreement with
                  the JAX package's recorded run; then the other registered
                  experiments over the wav clips, with no error
   8. batched     step 0 (two B=8 forward_batch_async calls make no
@@ -62,13 +70,15 @@ without the final line):
                  RecitationTracker in 300 ms chunks (each must score
                  sequence accuracy 1.0), with per-cycle forward, fusion
                  scoring and feed times; counters zeroed just before the
-                 replay and read just after
+                 replay and read just after; one lattice launch a scorer
+                 chunk, the scoring calls replayed on the plain lattice
   11. streaming  every decodable v1 clip (N >= 37) through validate_streaming
       corpus     on stream6-int8 in 300 ms chunks (counters zeroed just
                  before, read just after): each clip's final sequence equal
                  to the JAX package's live replay (eval/refs/streaming_v1.json;
                  the 2026-08-21 record printed beside it); the STREAM_IDS at
-                 sequence accuracy 1.0; 189 int8 + 1 log-mel a forward
+                 sequence accuracy 1.0; 189 int8 + 1 log-mel a forward; one
+                 lattice launch a scorer chunk
   12. cache      StreamingEncoderCache on a window over 16 s, cold and
                  with its tail grown by 1 s, against forward_long (ids,
                  t_valid, log-probs), and the ops whose row 0 changes with
@@ -111,8 +121,9 @@ without the final line):
                  clip the JAX package's recorded run gets right right here),
                  then two-stage and the six pruned-ctc variants over the
                  wav clips (no error; recall, sequence accuracy, p50, the
-                 CTC lattice's ms per clip); every run with 11·L + 2 int4
-                 and one log-mel launch a forward of its L-block runtimes
+                 CTC lattice's ms per clip beside the plain lattice's); every
+                 run with 11·L + 2 int4 and one log-mel launch a forward of
+                 its L-block runtimes and one lattice launch a scorer chunk
                  (counters zeroed just before each, read just after);
                  heldout raises FileNotFoundError where its bundle is not in
                  the copy
@@ -128,7 +139,8 @@ without the final line):
       oracle     seed 0) through the runner over every v1 manifest row, the
                  CTC rerank off and on (its lattice on the card, timed):
                  decisions equal to the JAX package's (eval/refs/phoneme_v1.json),
-                 rows labelled acoustics "oracle", no kernel launched
+                 rows labelled acoustics "oracle", no kernel launched but the
+                 lattice (one a scorer chunk, timed beside the plain lattice)
   22. phoneme    train.phoneme at full width from the dequantized
       train      champion-int4 with a fresh 70-class head, PHONEME_TRAIN_STEPS
                  steps in a temporary directory: finite losses, one log-mel
@@ -149,10 +161,10 @@ without the final line):
                  its parameters equal to a replay of its own gradients; one
                  log-mel and no quantized launch a step; each path's step ms
                  (CUDA events and host clock, in turns); the sharded forward
-                 + CTC rerank of 6 transcripts equal to the unsharded
-                 model's scores. Then, on the host's CPU and labelled so,
-                 the 8-rank gloo dry run (data 4 x model 2) and the JAX
-                 package's line
+                 + CTC rerank of 6 transcripts (one batch lattice launch)
+                 equal to the unsharded model's scores. Then, on the
+                 host's CPU and labelled so, the 8-rank gloo dry run (data
+                 4 x model 2) and the JAX package's line
 
 --layouts DATAxMODEL,... (e.g. 2x2,1x4,4x1 on a four-card machine) runs
 phase 23 alone, one NCCL rank a card, one mesh a layout, each using every
@@ -167,24 +179,26 @@ bundle is absent) with three phases:
                    classes); the runner over every decodable v1 clip, rerank
                    off and on: verses equal to the JAX package's live run
                    (eval/refs/phoneme_v1.json) but for named near ties, 189
-                   int8 + 1 log-mel a forward
+                   int8 + 1 log-mel a forward, one lattice launch a scorer
+                   chunk
   heldout bundle   heldout-int4 with TTA through the runner: verses equal to
                    the JAX package's live run (eval/refs/heldout_v1.json) but
                    for named near ties, and to the 2026-08-21 record but where
                    a near tie or today's JAX run differs from it; 189 int4 +
-                   1 log-mel a forward
+                   1 log-mel a forward, one lattice launch a scorer chunk
   phoneme          train.phoneme --init exports/phoneme-int8, CONTINUE_STEPS
   continuation     steps: its trained head kept, as in 22
-Its last lines: {"bundles": ...}, nvidia-smi's line, the kernels line and
-the ok line.
+Its last lines: the wall, {"bundles": ...}, nvidia-smi's line, the kernels
+line and the ok line.
 
-The last four lines: one JSON object {"train": {...}} (step ms, audio-s/s,
+The last lines: the wall, one JSON object {"train": {...}} (step ms, audio-s/s,
 peak bytes, training MFU, distill step ms, the kernel-vs-plain deltas, the
 multi-device phase's numbers, the card and its power limit), nvidia-smi's name and power limit, one JSON
 object with every kernel's numbers (`launches`: the eval phase's run;
 `train_launches`: the train phase's log-mel and the distill teacher's
 int4; `path_launches`: one entry per path of phases 11, 19, 20, 22 and 23; the
-int8 entry's `phoneme_head`: the (512, 70) head's times per M), and
+int8 entry's `phoneme_head`: the (512, 70) head's times per M; the lattice
+entry's `paths`: kernel and plain per-call times of each path), and
 {"ok": true, "device": {...}}. A line before them says that the bundle
 section runs under --bundles.
 Imports nothing of JAX, flax, msgpack or tilawa_tpu.
@@ -298,6 +312,11 @@ HOOK_BLOCK = 2
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
+# the special-function units (MUFU: the exp2 and log2 under expf and log1pf):
+# 16 results a clock on each of the 132 SMs (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0) at the H100
+# SXM's 1.98 GHz boost clock
+MUFU_OPS_S = 132 * 16 * 1.98e9
 
 INT4_TOL = 1e-5     # max|Δ| ≤ INT4_TOL · max|ref|: same bf16 operands, f32 sums in another
                     # order; a W left unrounded to bf16 errs by ~1e-3 · max|ref| (checked below)
@@ -319,6 +338,25 @@ MEL_SHAPES = ((1, 64000), (1, 128000), (1, 256000), (1, 512000), (2, 64000),
               (2, 256000), (8, 256000), (1, 12345),
               (8, 64000), (8, 128000), (8, 512000), (8, 1024000))   # the batched eval's
 MEL_OFFSETS = (1, 2, 3, 5, 97)   # frame offsets for the bitwise shift check
+LATTICE_TOL = 1e-5  # the CTC lattice kernel against its plain version, rtol and atol on the
+                    # finite scores (+inf patterns and each call's argmin equal): the same f32
+                    # recursion with IEEE expf/log1pf in the same order; fast math or another
+                    # order of the two logaddexps drifts scores beyond it
+# (label, T, V, C, L_pad, t_valid, live lengths) of the lattice calls the
+# paths make: the champion rerank's 512-row chunk at L_pad 128 (most rows
+# padding, a row at exactly 2L+1 = t_valid, runs of a repeated token), with
+# infeasible rows, and at t_valid 1; a 64-row chunk at L_pad 512; the
+# phoneme rerank's V 70 at L_pad 3,072 (a row at L 2,598, feasible at the
+# 8192-frame bucket); the tracker's two-candidate calls
+LATTICE_CASES = (
+    ("rerank chunk", 512, 1025, 512, 128, 257, (128, 127, 100, 64, 40, 17, 5, 3, 2, 1)),
+    ("infeasible rows", 512, 1025, 512, 128, 201, (128, 101, 100, 99, 50, 1)),
+    ("t_valid 1", 512, 1025, 512, 128, 1, (1, 5, 128)),
+    ("L_pad 512", 1024, 1025, 64, 512, 1000, (499, 500, 512, 300, 128, 129, 7)),
+    ("phoneme", 8192, 70, 64, 3072, 5197, (2598, 2599, 1500, 700, 64, 1)),
+    ("tracker", 512, 1025, 2, 128, 300, (6, 4)),
+)
+LATTICE_BATCH_T_VALID = (512, 257, 100, 1)   # the batch form's B = 4 rows
 
 
 def mel_shapes() -> tuple[tuple[int, int], ...]:
@@ -798,6 +836,159 @@ def check_int8(torch, np, quant, flush) -> dict:
     }
 
 
+def lattice_case(torch, np, t: int, v: int, c: int, l_pad: int, lengths, seed: int) -> tuple:
+    """Log-probs [T, V] (log-softmax of N(0, 2²) logits) and c zero-padded
+    candidates of the given live lengths (never the blank V-1; every third
+    with a run of one token), the rest padding, on the card."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((t, v)).astype(np.float32) * 2
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    tokens = np.zeros((c, l_pad), np.int32)
+    lens = np.zeros(c, np.int32)
+    for i, n in enumerate(lengths):
+        ids = rng.integers(0, v - 1, size=n)
+        if i % 3 == 0 and n > 4:
+            ids[1:4] = ids[0]
+        tokens[i, :n], lens[i] = ids, n
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in (lp, tokens, lens))
+
+
+def lattice_gate(torch, what: str, out, ref) -> float:
+    """The lattice's scores (one row a call: [C], or [B, C]) against the
+    plain version's: equal +inf patterns, finite scores within LATTICE_TOL
+    (rtol and atol), equal argmin a row. Returns the largest finite |Δ|."""
+    out, ref = torch.as_tensor(out).double(), torch.as_tensor(ref).double()
+    inf = torch.isinf(ref)
+    if out.shape != ref.shape or not torch.equal(torch.isinf(out), inf):
+        raise AssertionError(f"{what}: +inf patterns differ from the plain version's")
+    fin = ~inf
+    delta = (out[fin] - ref[fin]).abs()
+    if not bool((delta <= LATTICE_TOL + LATTICE_TOL * ref[fin].abs()).all()):
+        raise AssertionError(f"{what}: max|Δ| {float(delta.max())} beyond {LATTICE_TOL}")
+    if not torch.equal(out.argmin(-1), ref.argmin(-1)):
+        raise AssertionError(f"{what}: the best candidate differs from the plain version's")
+    return float(delta.max()) if delta.numel() else 0.0
+
+
+def lattice_bound_ms(np, t_valids, t: int, v: int, tokens, lens, base: int,
+                     row_bytes: int) -> tuple[float, str, int]:
+    """What the lattice function needs for rows of these t_valid against
+    these candidates, over the log-probs at address `base` (row b at base +
+    b * row_bytes, frame t a further t * 4 V bytes). Bytes (over
+    HBM_BYTES_S): in each row's t_valid frames only the blank column and the
+    token columns of the row's feasible candidates are read, so a frame
+    counts 32 bytes for each distinct 32-byte sector that holds one of them,
+    at most its 4 V bytes; plus the tokens, lengths and t_valids read once
+    and the scores written once. Work (over MUFU_OPS_S): per live frame
+    t >= 1 of a feasible candidate of length L, 2 expf + 2 log1pf a label
+    state and 1 + 1 a blank state, 6 L + 2 transcendentals. Returns (ms,
+    what binds, transcendentals)."""
+    tokens = np.asarray(tokens)
+    lens = [int(n) for n in lens]
+    nbytes = len(lens) * (tokens.shape[1] + 1) * 4 + len(t_valids) * (len(lens) + 1) * 4
+    ops = 0
+    for b, tv in enumerate(t_valids):
+        live = [c for c, n in enumerate(lens) if n > 0 and 2 * n + 1 <= tv]
+        if not live:
+            continue
+        cols = np.unique(np.concatenate([tokens[c, :lens[c]] for c in live] + [[v - 1]]))
+        frames = np.arange(min(tv, t), dtype=np.int64)
+        sectors = np.sort((base + b * row_bytes + frames[:, None] * (4 * v)
+                           + cols[None, :].astype(np.int64) * 4) // 32, axis=1)
+        per_frame = 1 + (np.diff(sectors, axis=1) != 0).sum(axis=1)
+        nbytes += int(np.minimum(32 * per_frame, 4 * v).sum())
+        ops += sum((min(tv, t) - 1) * (6 * lens[c] + 2) for c in live)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / MUFU_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), ops
+
+
+def check_lattice(torch, np, ctc, flush) -> dict:
+    """The CTC lattice kernel at every LATTICE_CASES shape and the batch
+    form at B = 4 with four t_valid, against its plain version (lattice_gate),
+    feasible rows exactly the finite ones; the kernel's time, the plain
+    version's, the bound and one library yardstick: F.ctc_loss(reduction=
+    "none") over the same log-probs expanded to [T, C, V], the reference's
+    own formulation (its feasibility rule differs, so its |Δ| against the
+    kernel is printed on the feasible rows only). The JSON entry carries the
+    champion's rerank chunk, every shape under `shapes`."""
+    import torch.nn.functional as F
+
+    rows = {}
+
+    def library_fn(lp_tcv, tokens, input_lengths, lens):
+        targets = tokens.long()
+        target_lengths = lens.tolist()
+        return lambda: F.ctc_loss(lp_tcv, targets, input_lengths, target_lengths,
+                                  blank=lp_tcv.shape[-1] - 1, reduction="none")
+
+    def measure(label, t, v, c, l_pad, t_valids, lp, tokens, lens, kernel, plain, library,
+                out, ref):
+        err = lattice_gate(torch, f"lattice {label}", out, ref)
+        feasible = (2 * lens + 1 <= torch.tensor(t_valids, device=DEVICE)[:, None]) & (lens > 0)
+        if not torch.equal(torch.isfinite(out.reshape(len(t_valids), c)), feasible):
+            raise AssertionError(f"lattice {label}: finite scores are not the feasible rows")
+        slow = t * l_pad > 4 << 20          # the phoneme shape: the plain loop takes seconds
+        ms = time_cuda(torch, kernel, flush)
+        plain_ms = time_cuda(torch, plain, flush, reps=1 if slow else 3, warmup=0 if slow else 1)
+        lib = library()
+        lib_err = float(((lib.reshape(len(t_valids), c) / lens.clamp(min=1)) - out.reshape(
+            len(t_valids), c)).abs()[feasible].max()) if bool(feasible.any()) else 0.0
+        lib_ms = time_cuda(torch, library, flush, reps=3 if slow else 20, warmup=1 if slow else 3)
+        bound, by, ops = lattice_bound_ms(np, t_valids, t, v, tokens.cpu().numpy(), lens.tolist(),
+                                          lp.data_ptr(), lp.stride(0) * 4 if lp.dim() == 3 else 0)
+        print(f"  lattice {label:15s} T={t} V={v} C={c} L_pad={l_pad} t_valid={list(t_valids)} "
+              f"(the serial chain, frames) live {int((lens > 0).sum())}, feasible "
+              f"{int(feasible.sum())}: max|Δ|={err:.3g}  kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  F.ctc_loss {lib_ms:.4f} ms (|Δ| on feasible rows "
+              f"{lib_err:.3g})  bound {bound:.5f} ms ({by}; {ops} transcendentals at "
+              f"{MUFU_OPS_S:.4g}/s)", flush=True)
+        rows[label] = {"label": label, "t": t, "v": v, "c": c, "l_pad": l_pad,
+                       "t_valid": list(t_valids), "feasible": int(feasible.sum()),
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "library_abs_err": lib_err, "bound_ms": bound, "bound_by": by,
+                       "transcendentals": ops}
+
+    for i, (label, t, v, c, l_pad, t_valid, lengths) in enumerate(LATTICE_CASES):
+        lp, tokens, lens = lattice_case(torch, np, t, v, c, l_pad, lengths, SEED + 10 + i)
+        blank = v - 1
+        out = ctc.ctc_forward_scores(lp, t_valid, tokens, lens, blank)
+        ref = ctc.ctc_forward_scores_plain(lp, t_valid, tokens, lens, blank)
+        torch.cuda.synchronize()
+        measure(label, t, v, c, l_pad, (t_valid,), lp, tokens, lens,
+                lambda: ctc.ctc_forward_scores(lp, t_valid, tokens, lens, blank),
+                lambda: ctc.ctc_forward_scores_plain(lp, t_valid, tokens, lens, blank),
+                library_fn(lp[:, None, :].expand(t, c, v), tokens, [t_valid] * c, lens), out, ref)
+        del lp, ref
+
+    lp, tokens, lens = lattice_case(torch, np, 512, 1025, 64, 128, (128, 90, 33, 6, 1), SEED + 9)
+    rows4 = torch.stack([lp, lp.flip(0), lp.roll(7, 0), lp * 1.5]).log_softmax(-1)
+    t_valid = torch.tensor(LATTICE_BATCH_T_VALID, dtype=torch.int32, device=DEVICE)
+    out = ctc.ctc_forward_scores_batch(rows4, t_valid, tokens, lens, 1024)
+    ref = ctc.ctc_forward_scores_batch_plain(rows4, t_valid, tokens, lens, 1024)
+    for b, tv in enumerate(LATTICE_BATCH_T_VALID):
+        if not torch.equal(bits(torch, out[b]),
+                           bits(torch, ctc.ctc_forward_scores(rows4[b], tv, tokens, lens, 1024))):
+            raise AssertionError(f"lattice batch: row {b} differs from the single form")
+    expanded = rows4.transpose(0, 1)[:, :, None, :].expand(512, 4, 64, 1025).reshape(512, 256, 1025)
+    measure("batch B=4", 512, 1025, 64, 128, LATTICE_BATCH_T_VALID, rows4, tokens, lens,
+            lambda: ctc.ctc_forward_scores_batch(rows4, t_valid, tokens, lens, 1024),
+            lambda: ctc.ctc_forward_scores_batch_plain(rows4, t_valid, tokens, lens, 1024),
+            library_fn(expanded, tokens.repeat(4, 1),
+                       [tv for tv in LATTICE_BATCH_T_VALID for _ in range(64)], lens.repeat(4)),
+            out, ref)
+    print("  lattice batch: each row bitwise the single form at its t_valid", flush=True)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    return {
+        "name": "ctc_lattice", "route": "cuda",
+        "source": "tilawa_tpu_torch/csrc/ctc_lattice.cu",
+        "replaces": "tilawa_tpu/ops/ctc.py:53",
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        **{k: rows["rerank chunk"][k] for k in keys},
+        "t_valid": rows["rerank chunk"]["t_valid"][0],
+        "shapes": list(rows.values()),
+    }
+
+
 def preemphasize(torch, frontend, audio):
     return torch.cat([audio[:, :1], audio[:, 1:] - frontend.PREEMPH * audio[:, :-1]], dim=1)
 
@@ -896,11 +1087,13 @@ def _pcts(values: list[float]) -> str:
     return f"{v[len(v) // 2] * 1e3:.2f}/{v[int(0.9 * (len(v) - 1))] * 1e3:.2f}"
 
 
-def streaming(torch, kernels, rerank, validate_streaming, recognizer) -> dict:
+def streaming(torch, kernels, rerank, validate_streaming, recognizer) -> tuple[dict, dict]:
     """Replay STREAM_IDS through the port's validate_streaming harness, one
     clip at a time, timing each cycle's forward (the runtime's forward ends
     in a host read of the ids) and each call of the tracker's CTC fusion
-    scorer. Returns the launch counts of the replay."""
+    scorer (one lattice launch a scorer chunk; its calls replayed on the
+    plain version by lattice_report). Returns the launch counts of the
+    replay and lattice_report's numbers."""
     runtime = recognizer.runtime
     forward_s: list[float] = []
     scoring_s: list[float] = []
@@ -911,7 +1104,8 @@ def streaming(torch, kernels, rerank, validate_streaming, recognizer) -> dict:
     db, store = recognizer.db, recognizer.token_store
     wrong = []
     with timed_calls(runtime, "forward", forward_s), \
-            timed_calls(rerank, "score_token_lists", scoring_s):
+            timed_calls(rerank, "score_token_lists", scoring_s), \
+            lattice_record(torch, rerank) as lattice:
         torch.cuda.synchronize()
         kernels.reset_launches()
         runtime.forwards = 0
@@ -939,7 +1133,9 @@ def streaming(torch, kernels, rerank, validate_streaming, recognizer) -> dict:
             or launches["log_mel"] != forwards or launches["int4_matmul"] != 0:
         raise AssertionError("the streaming path did not run the int8 and log-mel kernels "
                              "once per layer and forward")
-    return launches
+    check_lattice_launches("streaming replay", launches, lattice)
+    return launches, lattice_report(torch, rerank, "streaming replay (fusion scoring)", lattice,
+                                    len(STREAM_IDS))
 
 
 def batch_variance(torch, np, runtime, frontend, audio, rows: int = 2,
@@ -1981,7 +2177,8 @@ def _verses(entries) -> list[tuple[int, int]]:
     return [(e["surah"], e["ayah"]) for e in entries or []]
 
 
-def streaming_corpus(torch, kernels, validate_streaming, recognizer) -> tuple[dict, dict]:
+def streaming_corpus(torch, kernels, rerank, validate_streaming,
+                     recognizer) -> tuple[dict, dict]:
     """Every decodable v1 clip through validate_streaming's tracker on
     stream6-int8 in 300 ms chunks (counters zeroed just before, read just
     after), each clip's emissions and final sequence against the JAX
@@ -1990,7 +2187,8 @@ def streaming_corpus(torch, kernels, validate_streaming, recognizer) -> tuple[di
     replaces (JAX_STREAM_RUN) is printed beside it. Gates: at least
     MIN_EVAL_CLIPS clips, the final sequence equal to the reference's on
     every clip, the STREAM_IDS at sequence accuracy 1.0, 189 int8 + 1
-    log-mel launches a forward. Returns (result, launches)."""
+    log-mel launches a forward, one lattice launch a scorer chunk. Returns
+    (result, launches)."""
     from tilawa_tpu_torch.eval.jax_refs import STREAM_REF, load_ref
 
     runtime = recognizer.runtime
@@ -1998,10 +2196,11 @@ def streaming_corpus(torch, kernels, validate_streaming, recognizer) -> tuple[di
     kernels.reset_launches()
     runtime.forwards = 0
     t = time.perf_counter()
-    res = validate_streaming.run_validation(
-        recognizer.transcribe_result, db=recognizer.db, token_store=recognizer.token_store,
-        verbose=False)
-    torch.cuda.synchronize()
+    with lattice_record(torch, rerank, replay=False) as lattice:
+        res = validate_streaming.run_validation(
+            recognizer.transcribe_result, db=recognizer.db, token_store=recognizer.token_store,
+            verbose=False)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches, forwards = dict(kernels.LAUNCHES), runtime.forwards
     ref = load_ref(STREAM_REF)
@@ -2039,20 +2238,22 @@ def streaming_corpus(torch, kernels, validate_streaming, recognizer) -> tuple[di
             or launches["log_mel"] != forwards or launches["int4_matmul"] != 0:
         raise AssertionError("the corpus replay did not run the int8 and log-mel kernels "
                              "once per layer and forward")
+    check_lattice_launches("streaming corpus", launches, lattice)
     return res, launches
 
 
 @contextmanager
 def recorded_calls(owner, attr: str, record):
     """owner.attr (a module's function or an object's method) with
-    record(args, result, wall seconds) called after each call while inside."""
+    record(args, kwargs, result, wall seconds) called after each call while
+    inside."""
     real = getattr(owner, attr)
     own = attr in vars(owner)
 
     def wrapped(*args, **kw):
         t = time.perf_counter()
         out = real(*args, **kw)
-        record(args, out, time.perf_counter() - t)
+        record(args, kw, out, time.perf_counter() - t)
         return out
 
     setattr(owner, attr, wrapped)
@@ -2067,7 +2268,7 @@ def recorded_calls(owner, attr: str, record):
 
 def timed_calls(owner, attr: str, sink: list):
     """Wall seconds of every call of owner.attr while inside, into sink."""
-    return recorded_calls(owner, attr, lambda _args, _out, sec: sink.append(sec))
+    return recorded_calls(owner, attr, lambda _args, _kw, _out, sec: sink.append(sec))
 
 
 def counted(torch, kernels, runtimes, fn):
@@ -2099,20 +2300,24 @@ def families(torch, kernels, rerank, get_experiment, load_manifest, run_experime
     """The families that run on champion-int4: LM fusion over every v1
     sample (real acoustics, each clip the JAX record gets right right here),
     two-stage and the six pruned-ctc variants over CLIPS (no error), each
-    with 11·L + 2 int4 launches a forward of its L-block runtimes; heldout
-    raises FileNotFoundError where its bundle is not in the copy. Returns
-    {path: (int4 launches, log-mel launches)}."""
+    with 11·L + 2 int4 launches a forward of its L-block runtimes and one
+    lattice launch a scorer chunk (lattice_report for two-stage and
+    pruned); heldout raises FileNotFoundError where its bundle is not in
+    the copy. Returns ({path: (int4, log-mel, lattice launches)},
+    {path: lattice_report's numbers})."""
     samples, corpus_dir = load_manifest("v1")
     clip_samples = [s for s in samples if s["file"] in CLIPS]
-    out = {}
+    out, lattices = {}, {}
 
     exp = get_experiment(LM_FUSION, DEVICE)
     if exp.acoustics != "real" or exp.real is None:
         raise AssertionError(f"{LM_FUSION} runs on {exp.acoustics} acoustics, not the champion")
-    res, launches, fw = counted(torch, kernels, [exp.real.runtime],
-                                lambda: run_experiment(LM_FUSION, exp, samples, corpus_dir))
+    with lattice_record(torch, rerank, replay=False) as lattice:
+        res, launches, fw = counted(torch, kernels, [exp.real.runtime],
+                                    lambda: run_experiment(LM_FUSION, exp, samples, corpus_dir))
     check_launches(LM_FUSION, launches, [exp.real.runtime], fw)
-    out[LM_FUSION] = (launches["int4_matmul"], launches["log_mel"])
+    check_lattice_launches(LM_FUSION, launches, lattice)
+    out[LM_FUSION] = (launches["int4_matmul"], launches["log_mel"], launches["ctc_lattice"])
     errors = [d["id"] for d in res["dispositions"] if d["status"] == "error"]
     recorded = {r["id"]: r for r in json.loads(JAX_LM_FUSION_RUN.read_text())[0]["per_sample"]}
     ours = {r["id"]: r for r in res["per_sample"]}
@@ -2132,21 +2337,18 @@ def families(torch, kernels, rerank, get_experiment, load_manifest, run_experime
                              f"{missed}")
 
     def clips_run(name, exp, runtimes):
-        lattice: list[float] = []
-        with timed_calls(rerank, "score_token_lists", lattice):
+        with lattice_record(torch, rerank) as lattice:
             res, launches, fw = counted(torch, kernels, runtimes, lambda: run_experiment(
                 name, exp, clip_samples, corpus_dir))
         errors = [d for d in res["dispositions"] if d["status"] == "error"]
-        lat = sorted(lattice)
         print(f"  {name:28s} N={res['total']} recall {res['recall']:.4f} seq_acc "
-              f"{res['sequence_accuracy']:.4f} p50 {res['p50_latency'] * 1e3:.2f} ms; lattice "
-              f"(rerank.score_token_lists) {len(lat)} calls, p50 "
-              f"{lat[len(lat) // 2] * 1e3 if lat else 0.0:.2f} ms, "
-              f"{sum(lat) * 1e3 / max(res['total'] + 1, 1):.2f} ms per clip", flush=True)
+              f"{res['sequence_accuracy']:.4f} p50 {res['p50_latency'] * 1e3:.2f} ms", flush=True)
         check_launches(name, launches, runtimes, fw)
+        check_lattice_launches(name, launches, lattice)
+        lattices[name] = lattice_report(torch, rerank, name, lattice, res["total"] + 1)
         if errors or res["total"] != len(CLIPS):
             raise AssertionError(f"{name}: {len(errors)} errors, {res['total']} clips scored")
-        out[name] = (launches["int4_matmul"], launches["log_mel"])
+        out[name] = (launches["int4_matmul"], launches["log_mel"], launches["ctc_lattice"])
 
     two = get_experiment("two-stage", DEVICE)
     stage1, stage2 = two.stages
@@ -2168,37 +2370,101 @@ def families(torch, kernels, rerank, get_experiment, load_manifest, run_experime
     else:
         print(f"  heldout: its bundle {_heldout_checkpoint()} is in this copy; not run",
               flush=True)
-    return out
+    return out, lattices
 
 
 def _pairs(entries) -> list[list[int]]:
     return [list(v) for v in _verses(entries)]
 
 
-def lattice_calls(rerank, sink: list):
-    """rerank.score_token_lists recorded per call: (seconds, token lists,
-    longest list L, t_valid). The phoneme experiment looks it up at each
-    call, so the wrapper sees every lattice of its rerank."""
-    return recorded_calls(rerank, "score_token_lists", lambda args, _out, sec: sink.append(
-        (sec, len(args[2]), max((len(x) for x in args[2]), default=0), int(args[1]))))
+@contextmanager
+def lattice_record(torch, rerank, keep: int = 0, replay: bool = True):
+    """While inside, every rerank.score_token_lists call (its wall seconds,
+    arguments and scores; with `replay`, its log-probs cloned, for
+    lattice_report to replay) and every call of the scorer under it
+    (rerank.ctc_forward_scores: one a `_score_feasible` chunk, which must
+    launch the lattice kernel once), the first `keep` of those with their
+    inputs and scores cloned. Yields {"calls", "chunks", "kept"}."""
+    rec = {"calls": [], "chunks": 0, "kept": []}
+
+    def clone(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def on_call(args, kw, out, sec):
+        lp, t_valid, lists = args[:3]
+        blank = kw.get("blank_id", args[3] if len(args) > 3 else rerank.BLANK_ID)
+        rec["calls"].append({"sec": sec, "lp": clone(lp) if replay else None,
+                             "t_valid": int(t_valid), "lists": lists, "blank": blank,
+                             "scores": out})
+
+    def on_chunk(args, _kw, out, _sec):
+        rec["chunks"] += 1
+        if len(rec["kept"]) < keep:
+            rec["kept"].append((tuple(clone(a) for a in args), out.clone()))
+
+    with recorded_calls(rerank, "score_token_lists", on_call), \
+            recorded_calls(rerank, "ctc_forward_scores", on_chunk):
+        yield rec
 
 
-def print_lattice(what: str, calls: list, predicts: int) -> dict:
-    """Per-call p50 / p90 and the ms per predict call (`predicts`: the
-    runner's calls, its warm-up included) of lattice_calls' record."""
+def check_lattice_launches(what: str, launches: dict, rec: dict, required: bool = True) -> None:
+    """One lattice launch a scorer chunk (a chunk scored on the CPU launches
+    none, so a caller that hands the scorer host log-probs fails here), and
+    at least one chunk where the path must rerank."""
+    print(f"  {what}: {len(rec['calls'])} lattice calls in {rec['chunks']} scorer chunks; "
+          f"{launches['ctc_lattice']} ctc_lattice launches", flush=True)
+    if launches["ctc_lattice"] != rec["chunks"] or required and rec["chunks"] == 0:
+        raise AssertionError(f"{what}: {launches['ctc_lattice']} lattice launches for "
+                             f"{rec['chunks']} scorer chunks")
+
+
+def lattice_report(torch, rerank, what: str, rec: dict, predicts: int) -> dict:
+    """Per-call p50 / p90 and ms per clip (`predicts`: the clips, a runner's
+    warm-up included) of the recorded calls on the kernel path, beside the
+    plain path's: each call replayed here at its own log-probs and lists
+    with the plain scorer (rerank.ctc_forward_scores swapped for
+    ctc_forward_scores_plain), its scores held to the kernel's
+    (lattice_gate). Host clock, both ending in the scores' host read."""
+    from tilawa_tpu_torch.ops import ctc
+
+    calls = rec["calls"]
     if not calls:
         print(f"  {what}: no lattice call", flush=True)
-        return {"calls": 0}
-    secs = sorted(c[0] for c in calls)
-    out = {"calls": len(calls), "p50_ms": secs[len(secs) // 2] * 1e3,
-           "p90_ms": secs[int(0.9 * (len(secs) - 1))] * 1e3,
-           "ms_per_clip": sum(secs) * 1e3 / max(predicts, 1),
-           "candidates_p50": sorted(c[1] for c in calls)[len(calls) // 2],
-           "max_L": max(c[2] for c in calls), "max_T": max(c[3] for c in calls)}
-    print(f"  {what}: lattice (rerank.score_token_lists, plain torch on the card) "
-          f"{out['calls']} calls, p50 {out['p50_ms']:.2f} ms, p90 {out['p90_ms']:.2f} ms, "
-          f"{out['ms_per_clip']:.2f} ms per clip; candidates p50 {out['candidates_p50']}, "
-          f"longest L {out['max_L']}, T up to {out['max_T']}", flush=True)
+        return {"calls": 0, "chunks": rec["chunks"]}
+    plain, err = [], 0.0
+    real = rerank.ctc_forward_scores
+    rerank.ctc_forward_scores = ctc.ctc_forward_scores_plain
+    try:
+        for call in calls:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref = rerank.score_token_lists(call["lp"], call["t_valid"], call["lists"],
+                                           blank_id=call["blank"])
+            plain.append(time.perf_counter() - t)
+            err = max(err, lattice_gate(torch, f"{what} lattice call", call["scores"], ref))
+    finally:
+        rerank.ctc_forward_scores = real
+
+    def pcts(secs):
+        v = sorted(secs)
+        return (v[len(v) // 2] * 1e3, v[int(0.9 * (len(v) - 1))] * 1e3,
+                sum(v) * 1e3 / max(predicts, 1))
+
+    kernel = pcts([c["sec"] for c in calls])
+    base = pcts(plain)
+    out = {"calls": len(calls), "chunks": rec["chunks"],
+           **dict(zip(("p50_ms", "p90_ms", "ms_per_clip"), kernel)),
+           **dict(zip(("plain_p50_ms", "plain_p90_ms", "plain_ms_per_clip"), base)),
+           "max_abs_err": err,
+           "candidates_p50": sorted(len(c["lists"]) for c in calls)[len(calls) // 2],
+           "max_L": max(max((len(x) for x in c["lists"]), default=0) for c in calls),
+           "max_T": max(c["t_valid"] for c in calls)}
+    print(f"  {what}: lattice (rerank.score_token_lists) {out['calls']} calls, "
+          f"{out['chunks']} chunks: kernel p50 {kernel[0]:.2f} ms, p90 {kernel[1]:.2f} ms, "
+          f"{kernel[2]:.2f} ms per clip; plain (the same calls replayed) p50 {base[0]:.2f} ms, "
+          f"p90 {base[1]:.2f} ms, {base[2]:.2f} ms per clip; scores within {err:.3g}; "
+          f"candidates p50 {out['candidates_p50']}, longest L {out['max_L']}, t_valid up to "
+          f"{out['max_T']}", flush=True)
     return out
 
 
@@ -2214,11 +2480,11 @@ def runner_decisions(torch, kernels, name: str, exp, runtime, runtimes, samples,
     raw: dict[str, tuple] = {}
     rows_of: list = []
 
-    def on_predict(args, out, _sec):
+    def on_predict(args, _kw, out, _sec):
         raw[Path(args[0]).stem] = (out, list(rows_of))
         rows_of.clear()
 
-    def on_forward(args, out, _sec):   # (lp [B, T, V], lens [B], ...)
+    def on_forward(args, _kw, out, _sec):   # (lp [B, T, V], lens [B], ...)
         lps = out[0].float().cpu().numpy() if torch.is_tensor(out[0]) else out[0]
         lens = out[1].cpu().numpy() if torch.is_tensor(out[1]) else out[1]
         rows_of.extend((lps[i], int(lens[i])) for i in range(len(args[0])))
@@ -2275,15 +2541,16 @@ def phoneme_run(torch, kernels, rerank, exp, runtimes, section: str, load_manife
     """fastconformer-phoneme `exp` through the port's runner over every v1
     sample, TILAWA_PHONEME_RERANK set for the *_rerank sections of the JAX
     reference file, the lattice's calls recorded; its decisions held to that
-    section's (compare_decisions). Returns (runner result, launches,
-    forwards, lattice times)."""
+    section's (compare_decisions); one lattice launch a scorer chunk, at
+    least one chunk where it reranks, none where it does not. Returns
+    (runner result, launches, forwards, lattice_report's numbers)."""
     from tilawa_tpu_torch.eval.jax_refs import PHONEME_REF, load_ref
 
     samples, corpus_dir = load_manifest("v1")
-    lattice: list = []
-    os.environ["TILAWA_PHONEME_RERANK"] = "1" if section.endswith("_rerank") else ""
+    reranks = section.endswith("_rerank")
+    os.environ["TILAWA_PHONEME_RERANK"] = "1" if reranks else ""
     try:
-        with lattice_calls(rerank, lattice):
+        with lattice_record(torch, rerank) as lattice:
             res, launches, fw, ours = runner_decisions(
                 torch, kernels, PHONEME, exp, runtimes[0] if runtimes else None, runtimes,
                 samples, corpus_dir, run_experiment)
@@ -2294,7 +2561,11 @@ def phoneme_run(torch, kernels, rerank, exp, runtimes, section: str, load_manife
           f"{res['recall']:.4f} seq_acc {res['sequence_accuracy']:.4f} p50 "
           f"{res['p50_latency'] * 1e3:.2f} ms; launches {launches}, forwards {fw}", flush=True)
     compare_decisions(f"{PHONEME} [{section}]", ours, load_ref(PHONEME_REF, section))
-    lat = print_lattice(f"{PHONEME} [{section}]", lattice, res["total"] + 1)
+    check_lattice_launches(f"{PHONEME} [{section}]", launches, lattice, required=reranks)
+    if not reranks and lattice["chunks"]:
+        raise AssertionError(f"{PHONEME} [{section}] scored a lattice with the rerank off")
+    lat = lattice_report(torch, rerank, f"{PHONEME} [{section}]", lattice, res["total"] + 1)
+    lat["launches"] = launches["ctc_lattice"]
     if errors or not ours:
         raise AssertionError(f"{PHONEME} [{section}]: errors {errors}, {len(ours)} clips")
     return res, launches, fw, lat
@@ -2304,7 +2575,8 @@ def phoneme_oracle(torch, kernels, rerank, load_manifest, run_experiment) -> dic
     """fastconformer-phoneme on oracle acoustics (rendered on the host from
     seed 0, as the JAX package renders them) over every v1 manifest row,
     the CTC rerank off and on (its lattice on the card): decisions equal to
-    the JAX package's on the CPU, no kernel launched."""
+    the JAX package's on the CPU, no kernel launched but the lattice's (one
+    a scorer chunk of the rerank)."""
     from tilawa_tpu_torch.eval.experiments import PhonemeExperiment
 
     out = {}
@@ -2312,7 +2584,8 @@ def phoneme_oracle(torch, kernels, rerank, load_manifest, run_experiment) -> dic
         exp = PhonemeExperiment(DEVICE, oracle=True)
         res, launches, _fw, out[section] = phoneme_run(
             torch, kernels, rerank, exp, [], section, load_manifest, run_experiment)
-        if res["acoustics"] != "oracle" or any(launches.values()):
+        if res["acoustics"] != "oracle" or any(
+                n for name, n in launches.items() if name != "ctc_lattice"):
             raise AssertionError(f"the oracle phoneme run is labelled {res['acoustics']} or "
                                  f"launched {launches}")
     return out
@@ -2363,7 +2636,7 @@ def phoneme_train_phase(torch, np, kernels, init: Path, ckpt_dir: Path, steps: i
     if not all(np.isfinite(float(st["loss"])) for st in steps_log):
         raise AssertionError("a phoneme training loss is not finite")
     bad = [st["i"] for st in steps_log if st["launches"] != {
-        "int4_matmul": 0, "log_mel": 1, "int8_matmul": 0}]
+        "int4_matmul": 0, "log_mel": 1, "int8_matmul": 0, "ctc_lattice": 0}]
     if bad:
         raise AssertionError(f"steps {bad}: want 1 log-mel and no quantized launch a step")
 
@@ -2403,7 +2676,7 @@ def harnesses(torch, np, kernels, runtime, validate_streaming, load_audio, manif
     at the same bucket), run_stability of MAIN_EXPERIMENT (no flaky sample,
     every clip a stable pass), tracker_oracle over v1 (no kernel launched),
     and analyze / compare over this run's eval and streaming results.
-    Returns {path: (int4 launches, log-mel launches)}."""
+    Returns {path: (int4, log-mel, lattice launches)}."""
     from tilawa_tpu_torch.data.quran import QuranDB
     from tilawa_tpu_torch.data.token_store import TokenStore
     from tilawa_tpu_torch.data.tokenizer import SentencePieceBPE
@@ -2423,7 +2696,7 @@ def harnesses(torch, np, kernels, runtime, validate_streaming, load_audio, manif
     sweep, launches, fw = counted(torch, kernels, [runtime], lambda: context_sweep.run_sweep(
         runtime, ids=ids, verbose=False))
     check_launches("context sweep", launches, [runtime], fw)
-    out["context-sweep"] = (launches["int4_matmul"], launches["log_mel"])
+    out["context-sweep"] = (launches["int4_matmul"], launches["log_mel"], launches["ctc_lattice"])
     for table, rows in sweep.items():
         print(f"  {table}: " + ", ".join(f"{k} {v['value']} (n={v['n']})" for k, v in rows.items()),
               flush=True)
@@ -2484,7 +2757,7 @@ def harnesses(torch, np, kernels, runtime, validate_streaming, load_audio, manif
 
     report, launches, fw = counted(torch, kernels, [], lambda: run_stability(
         MAIN_EXPERIMENT, repeats=STABILITY_REPEATS, ids=ids, device=DEVICE))
-    out["stability"] = (launches["int4_matmul"], launches["log_mel"])
+    out["stability"] = (launches["int4_matmul"], launches["log_mel"], launches["ctc_lattice"])
     print(f"  stability {MAIN_EXPERIMENT} x{STABILITY_REPEATS} over {report['samples']} clips: "
           f"stable_pass {report['stable_pass']}, flaky {report['flaky']}, stable_fail "
           f"{report['stable_fail']}, median seq_acc {report['median_seq_acc']:.4f}; launches "
@@ -2747,7 +3020,8 @@ def multi_device_phase(layouts: tuple[tuple[int, int], ...]) -> dict:
     backward uses atomics; a floor of 0 asks for bitwise equality), while a
     split sum flips bf16 roundings through the 17 blocks, so there the bf16
     deltas are printed beside the f32 gate; one log-mel and no quantized
-    launch a step; the sharded scores (B, 6) with the unsharded model's
+    launch a step; one lattice launch a sharded scores call (the batch
+    form over the rank's rows); the sharded scores (B, 6) with the unsharded model's
     infinities and finite scores within SCORE_RTOL·max|score| (in bf16 on a
     one-rank mesh, in f32 on every layout); every rank's losses equal."""
     import numpy as np
@@ -2837,8 +3111,12 @@ def multi_device_phase(layouts: tuple[tuple[int, int], ...]) -> dict:
         if one_rank:
             bad += [(name, what, key) for what in ("vs_plain", "vs_plain_again")
                     for key in beyond(lay[what], r["floor"])]
-        if any(n != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 0} for n in lay["launches"]):
+        if any(n != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 0, "ctc_lattice": 0}
+               for n in lay["launches"]):
             bad.append((name, "launches", lay["launches"]))
+        if any(sc["launches"]["ctc_lattice"] != 1 for sc in (lay["scores"], lay["scores32"])):
+            bad.append((name, "one lattice launch a scores call",
+                        [lay["scores"]["launches"], lay["scores32"]["launches"]]))
         if not scores_ok(lay["scores32"], rows) or one_rank and not scores_ok(lay["scores"], rows):
             bad.append((name, "scores", None))
         if any(o["layouts"][name]["losses"] != lay["losses"] for o in ranks[1:]):
@@ -2855,10 +3133,14 @@ def multi_device_phase(layouts: tuple[tuple[int, int], ...]) -> dict:
             "scores_max_err": lay["scores"]["max_err"], "scores_bitwise": lay["scores"]["bitwise"],
             "scores32_max_err": lay["scores32"]["max_err"],
             "log_mel_launches": sum(n["log_mel"] for n in lay["launches"])
-            + lay["scores"]["launches"]["log_mel"]}
+            + lay["scores"]["launches"]["log_mel"],
+            "ctc_lattice_launches": lay["scores"]["launches"]["ctc_lattice"]
+            + lay["scores32"]["launches"]["ctc_lattice"]}
     if bad:
         raise AssertionError(f"the sharded step differs from the plain one: {bad}")
     summary["log_mel_launches"] = sum(v["log_mel_launches"] for v in summary["layouts"].values())
+    summary["ctc_lattice_launches"] = sum(v["ctc_lattice_launches"]
+                                          for v in summary["layouts"].values())
     return summary
 
 
@@ -2898,7 +3180,7 @@ def run(bundles: str | None = None) -> int:
     from tilawa_tpu_torch.eval.runner import load_manifest, run_experiment
     from tilawa_tpu_torch.eval.metrics import best_emission_score, predict_to_emissions
     from tilawa_tpu_torch.io.bundle import load_variables, shipped_checkpoint
-    from tilawa_tpu_torch.ops import frontend, kernels, quant
+    from tilawa_tpu_torch.ops import ctc, frontend, kernels, quant
     from tilawa_tpu_torch.ops.ctc import collapse_ctc
     from tilawa_tpu_torch.parallel.dryrun import dryrun_multichip
     from tilawa_tpu_torch.pipeline import rerank
@@ -2929,6 +3211,7 @@ def run(bundles: str | None = None) -> int:
             check_int4(torch, np, quant, flush),
             check_log_mel(torch, np, frontend, flush),
             check_int8(torch, np, quant, flush),
+            check_lattice(torch, np, ctc, flush),
         ]
     del flush
     if bundles is not None:
@@ -2947,20 +3230,21 @@ def run(bundles: str | None = None) -> int:
         kernels.reset_launches()
         runtime.forwards = 0
         results = []
-        for clip in CLIPS:
+        with lattice_record(torch, rerank, keep=2) as lattice:
+            for clip in CLIPS:
+                t = time.perf_counter()
+                pred = recognizer.predict(CORPUS / clip)
+                latency = time.perf_counter() - t
+                sample = manifest[clip]
+                score = best_emission_score(
+                    sample["expected_verses"], predict_to_emissions(pred),
+                    sample.get("also_accept"),
+                )
+                results.append((clip, pred, latency, score["sequence_accuracy"]))
             t = time.perf_counter()
-            pred = recognizer.predict(CORPUS / clip)
-            latency = time.perf_counter() - t
-            sample = manifest[clip]
-            score = best_emission_score(
-                sample["expected_verses"], predict_to_emissions(pred),
-                sample.get("also_accept"),
-            )
-            results.append((clip, pred, latency, score["sequence_accuracy"]))
-        t = time.perf_counter()
-        long_text = recognizer.transcribe(CORPUS / LONG_CLIP)
-        long_latency = time.perf_counter() - t
-        torch.cuda.synchronize()
+            long_text = recognizer.transcribe(CORPUS / LONG_CLIP)
+            long_latency = time.perf_counter() - t
+            torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         forwards = runtime.forwards
         peak = torch.cuda.max_memory_allocated()
@@ -2981,7 +3265,20 @@ def run(bundles: str | None = None) -> int:
         if forwards == 0 or launches["int4_matmul"] != INT4_LAUNCHES_PER_FORWARD * forwards \
                 or launches["log_mel"] != forwards:
             raise AssertionError("the main path did not run every kernel once per layer")
-        for e in entries[:2]:
+        check_lattice_launches("main path", launches, lattice)
+        replay_err = 0.0
+        for args, out in lattice["kept"]:   # two recorded chunks at their real inputs
+            replay_err = max(replay_err, lattice_gate(
+                torch, f"main path chunk {tuple(args[2].shape)} t_valid {args[1]}", out,
+                ctc.ctc_forward_scores_plain(*args)))
+        print(f"  {len(lattice['kept'])} recorded main-path chunks replayed on the plain "
+              f"version: max|Δ| {replay_err:.3g}", flush=True)
+        if len(lattice["kept"]) != 2:
+            raise AssertionError("the main path scored fewer than two lattice chunks")
+        lattice_paths = {"main path": lattice_report(torch, rerank, "main path", lattice,
+                                                     len(CLIPS))}
+        entries[3]["replay_max_abs_err"] = replay_err
+        for e in entries[:2] + entries[3:]:
             e["clips_launches"] = launches[e["name"]]
 
     with phase("plain path"):
@@ -3004,9 +3301,11 @@ def run(bundles: str | None = None) -> int:
         trace(torch, runtime, recognizer, trace_clips)
 
     with phase("eval"):
-        eval_rec, eval_res, eval_launches = eval_path(
-            torch, kernels, get_experiment, load_manifest, run_experiment)
-        for e in entries[:2]:
+        with lattice_record(torch, rerank, replay=False) as lattice:
+            eval_rec, eval_res, eval_launches = eval_path(
+                torch, kernels, get_experiment, load_manifest, run_experiment)
+        check_lattice_launches(MAIN_EXPERIMENT, eval_launches, lattice)
+        for e in entries[:2] + entries[3:]:
             e["launches"] = eval_launches[e["name"]]
         other_experiments(get_experiment, load_manifest, run_experiment)
 
@@ -3018,9 +3317,11 @@ def run(bundles: str | None = None) -> int:
                                sample.get("expected_verses",
                                           [{"surah": sample["surah"], "ayah": sample["ayah"]}])))
         no_sync_check(torch, np, eval_rec.runtime)
-        _bres, batched_launches = batched_path(torch, np, kernels, frontend, eval_rec, eval_res,
-                                               audios)
-        for e in entries[:2]:
+        with lattice_record(torch, rerank, replay=False) as lattice:
+            _bres, batched_launches = batched_path(torch, np, kernels, frontend, eval_rec,
+                                                   eval_res, audios)
+        check_lattice_launches("batched", batched_launches, lattice)
+        for e in entries[:2] + entries[3:]:
             e["batched_launches"] = batched_launches[e["name"]]
 
     with phase("bench"):
@@ -3039,7 +3340,8 @@ def run(bundles: str | None = None) -> int:
         torch.cuda.synchronize()
         one = dict(kernels.LAUNCHES)
         print(f"  one stream6-int8 forward: launches {one}", flush=True)
-        if one != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": INT8_LAUNCHES_PER_FORWARD}:
+        if one != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": INT8_LAUNCHES_PER_FORWARD,
+                   "ctc_lattice": 0}:
             raise AssertionError("a stream6-int8 forward must launch 189 int8 and 1 log-mel kernels")
         audio = load_audio(CORPUS / CLIPS[1])
         fwd = []
@@ -3051,13 +3353,16 @@ def run(bundles: str | None = None) -> int:
         print(f"  {CLIPS[1]} stream6-int8 forward: median of 7 {fwd_ms:.2f} ms (host clock, "
               f"ends in a host read)", flush=True)
         check_profile(device_busy(torch, stream_rt, audio, fwd_ms, top=6), "stream6-int8")
-        stream_launches = streaming(torch, kernels, rerank, validate_streaming, stream_rec)
+        stream_launches, lattice_paths["streaming"] = streaming(
+            torch, kernels, rerank, validate_streaming, stream_rec)
         entries[2]["launches"] = stream_launches["int8_matmul"]
+        entries[3]["path_launches"] = {"streaming": stream_launches["ctc_lattice"]}
 
     with phase("streaming corpus"):
-        stream_res, corpus_launches = streaming_corpus(torch, kernels, validate_streaming,
-                                                       stream_rec)
+        stream_res, corpus_launches = streaming_corpus(torch, kernels, rerank,
+                                                       validate_streaming, stream_rec)
         entries[2]["path_launches"] = {"streaming corpus": corpus_launches["int8_matmul"]}
+        entries[3]["path_launches"]["streaming corpus"] = corpus_launches["ctc_lattice"]
         entries[1]["path_launches"] = {"streaming corpus": corpus_launches["log_mel"]}
 
     with phase("cache"):
@@ -3090,17 +3395,19 @@ def run(bundles: str | None = None) -> int:
             export_phase(torch, kernels, trained["checkpoint"], Path(tmp) / "bundle", manifest)
 
         with phase("families"):
-            paths = families(torch, kernels, rerank, get_experiment, load_manifest,
-                             run_experiment)
+            paths, family_lattice = families(torch, kernels, rerank, get_experiment,
+                                             load_manifest, run_experiment)
+            lattice_paths.update(family_lattice)
         with phase("harnesses"):
             paths.update(harnesses(torch, np, kernels, runtime, validate_streaming, load_audio,
                                    manifest, eval_res, stream_res, Path(tmp)))
-        entries[0].setdefault("path_launches", {}).update(
-            {path: int4 for path, (int4, _mel) in paths.items()})
-        entries[1]["path_launches"].update({path: mel for path, (_int4, mel) in paths.items()})
+        for e, i in ((entries[0], 0), (entries[1], 1), (entries[3], 2)):
+            e.setdefault("path_launches", {}).update({path: n[i] for path, n in paths.items()})
 
         with phase("phoneme oracle"):
             lattice = phoneme_oracle(torch, kernels, rerank, load_manifest, run_experiment)
+            lattice_paths[f"{PHONEME} [oracle_rerank]"] = lattice["oracle_rerank"]
+            entries[3]["path_launches"]["phoneme oracle"] = lattice["oracle_rerank"]["launches"]
         with phase("phoneme train"):
             ph_train = phoneme_train_phase(torch, np, kernels, CHAMPION, Path(tmp) / "phoneme",
                                            PHONEME_TRAIN_STEPS, keeps_head=False)
@@ -3108,6 +3415,7 @@ def run(bundles: str | None = None) -> int:
     with phase("multi-device"):
         multi = multi_device_phase(((1, 1),))
         entries[1]["path_launches"]["multi-device"] = multi["log_mel_launches"]
+        entries[3]["path_launches"]["multi-device"] = multi["ctc_lattice_launches"]
         t = time.perf_counter()
         multi["cpu_dryrun"] = dryrun_multichip(8, device="cpu")
         multi["cpu_dryrun_s"] = time.perf_counter() - t
@@ -3117,6 +3425,8 @@ def run(bundles: str | None = None) -> int:
           "--bundles phoneme-heldout, from a copy of the repository that holds them",
           flush=True)
 
+    entries[3]["paths"] = lattice_paths
+    print(f"chip_smoke: wall {time.perf_counter() - _T0:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"train": {
@@ -3147,8 +3457,8 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
     phoneme-int8 through the port's runner over v1 (one forward's launches;
     rerank off and on, decisions against the JAX package's live run),
     heldout-int4 through the runner (decisions against the JAX package's
-    live run, 189 int4 + 1 log-mel a forward), then train.phoneme's
-    continuation from phoneme-int8."""
+    live run, 189 int4 + 1 log-mel a forward, one lattice launch a scorer
+    chunk), then train.phoneme's continuation from phoneme-int8."""
     from tilawa_tpu_torch.data.audio import load_audio
     from tilawa_tpu_torch.eval.experiments import get_experiment
     from tilawa_tpu_torch.eval.jax_refs import HELDOUT_REF, load_ref
@@ -3164,8 +3474,8 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
         (lp, t), one, _fw = counted(torch, kernels, [rt], lambda: rt.log_probs(audio))
         print(f"  one phoneme-int8 forward of {CLIPS[1]}: log-probs {tuple(lp.shape)}, t_valid "
               f"{t}; launches {one}", flush=True)
-        if one != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": INT8_LAUNCHES_PER_FORWARD} \
-                or lp.shape[-1] != 70:
+        if one != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": INT8_LAUNCHES_PER_FORWARD,
+                   "ctc_lattice": 0} or lp.shape[-1] != 70:
             raise AssertionError("a phoneme-int8 forward must launch 189 int8 and 1 log-mel "
                                  "kernels and give 70 classes")
         lattice = {}
@@ -3173,9 +3483,11 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
             res, launches, fw, lattice[section] = phoneme_run(
                 torch, kernels, rerank, exp, [rt], section, load_manifest, run_experiment)
             if fw[0] == 0 or launches != {"int4_matmul": 0, "log_mel": fw[0],
-                                          "int8_matmul": INT8_LAUNCHES_PER_FORWARD * fw[0]}:
+                                          "int8_matmul": INT8_LAUNCHES_PER_FORWARD * fw[0],
+                                          "ctc_lattice": lattice[section]["chunks"]}:
                 raise AssertionError(f"{PHONEME} [{section}]: launches {launches} over {fw} "
-                                     f"forwards, want 189 int8 + 1 log-mel a forward")
+                                     f"forwards, want 189 int8 + 1 log-mel a forward and "
+                                     f"one lattice launch a scorer chunk")
             if res["total"] < MIN_EVAL_CLIPS:
                 raise AssertionError(f"only {res['total']} clips scored")
             if section == "real":
@@ -3189,15 +3501,18 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
                 print(f"  against the record {JAX_PHONEME_RUN.name} (today's JAX package "
                       f"differs from it on 3 of 44 clips): verses differ on {moved}", flush=True)
         entries[2]["phoneme_head_launches"] = entries[2]["launches"] // INT8_LAUNCHES_PER_FORWARD
+        entries[3]["path_launches"] = {f"{PHONEME} [real_rerank]":
+                                       lattice["real_rerank"]["launches"]}
 
     with phase("heldout bundle"):
         rec = get_experiment("heldout", DEVICE)
         if rec.runtime.config.quant != "int4" or not rec.tta:
             raise AssertionError("heldout must be the int4 bundle with TTA")
         samples, corpus_dir = load_manifest("v1")
-        res, launches, fw, ours = runner_decisions(torch, kernels, "heldout", rec, rec.runtime,
-                                                   [rec.runtime], samples, corpus_dir,
-                                                   run_experiment)
+        with lattice_record(torch, rerank, replay=False) as heldout_lattice:
+            res, launches, fw, ours = runner_decisions(torch, kernels, "heldout", rec,
+                                                       rec.runtime, [rec.runtime], samples,
+                                                       corpus_dir, run_experiment)
         recorded = {r["id"]: _pairs(r["predicted"])
                     for r in json.loads(JAX_HELDOUT_RUN.read_text())[0]["per_sample"]}
         old = [(i, recorded[i]) for i in ours if ours[i]["predicted"] != recorded[i]]
@@ -3216,10 +3531,14 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
         errors = [d["id"] for d in res["dispositions"] if d["status"] == "error"]
         if errors or res["total"] < MIN_EVAL_CLIPS:
             raise AssertionError(f"heldout: errors {errors}, {res['total']} clips")
+        check_lattice_launches("heldout", launches, heldout_lattice)
         if fw[0] == 0 or launches != {"int4_matmul": INT4_LAUNCHES_PER_FORWARD * fw[0],
-                                      "log_mel": fw[0], "int8_matmul": 0}:
-            raise AssertionError("heldout did not run 189 int4 and 1 log-mel launches a forward")
+                                      "log_mel": fw[0], "int8_matmul": 0,
+                                      "ctc_lattice": heldout_lattice["chunks"]}:
+            raise AssertionError("heldout did not run 189 int4 and 1 log-mel launches a forward "
+                                 "and one lattice launch a scorer chunk")
         entries[0]["launches"] = launches["int4_matmul"]
+        entries[3]["launches"] = launches["ctc_lattice"]
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_phoneme_") as tmp:
         with phase("phoneme continuation"):
@@ -3227,6 +3546,7 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
                                        CONTINUE_STEPS, keeps_head=True)
             entries[1]["train_launches"] = cont["log_mel_launches"]
 
+    print(f"chip_smoke: wall {time.perf_counter() - _T0:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"bundles": {"phoneme_p50_s": p50, "phoneme_lattice": lattice,

@@ -23,9 +23,13 @@ bitwise. The streaming cache against forward_long on stream6-int8: 1e-5,
 the reference's contract (tests/test_runtime_long.py). A full-width
 training step (f32 compute) with the log-mel kernel against the plain
 log-mel: within the deltas that ±2e-3 noise on the plain log-mel gives the
-same step (chip_smoke.train_vs_plain)."""
+same step (chip_smoke.train_vs_plain). The CTC lattice against its plain
+version (the same f32 logaddexp recursion, IEEE expf/log1pf in the same
+order): equal +inf patterns, finite scores within rtol/atol 1e-5, and the
+same best candidate (argmin) a call."""
 
 import dataclasses
+import sys
 import time
 from pathlib import Path
 
@@ -34,7 +38,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tilawa_tpu_torch.ops import frontend, kernels, quant  # noqa: E402
+from tilawa_tpu_torch.ops import ctc, frontend, kernels, quant  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -147,9 +154,11 @@ def test_champion_kernel_path_matches_plain_path(cuda):
     plain_rt = EncoderRuntime(dataclasses.replace(config, use_pallas=False), variables, cuda)
     kernels.reset_launches()
     _lp, ids_k, t_k = kernel_rt.forward(audio)
-    assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0}
+    assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0,
+                               "ctc_lattice": 0}
     _lp, ids_p, t_p = plain_rt.forward(audio)
-    assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0}
+    assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0,
+                               "ctc_lattice": 0}
     assert t_k == t_p
     assert collapse_ctc(ids_k, 1024) == collapse_ctc(ids_p, 1024)
 
@@ -215,9 +224,11 @@ def test_stream6_kernel_path_matches_plain_path(cuda):
     plain_rt = EncoderRuntime(dataclasses.replace(config, use_pallas=False), variables, cuda)
     kernels.reset_launches()
     _lp, ids_k, t_k = kernel_rt.forward(audio)
-    assert kernels.LAUNCHES == {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 189}
+    assert kernels.LAUNCHES == {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 189,
+                               "ctc_lattice": 0}
     _lp, ids_p, t_p = plain_rt.forward(audio)
-    assert kernels.LAUNCHES == {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 189}
+    assert kernels.LAUNCHES == {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 189,
+                               "ctc_lattice": 0}
     assert t_k == t_p
     assert collapse_ctc(ids_k, 1024) == collapse_ctc(ids_p, 1024)
 
@@ -292,7 +303,8 @@ def test_fused_epilogues_match_plain(cuda, m, k, n):
     assert out8.dtype == torch.bfloat16 and out8.shape == (m, n)
     _held_as_layer(out8, quant.int8_dense_plain(x, q, s8, bias), quant.int8_dense_plain(x, q, s8))
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"int4_matmul": 3, "log_mel": 0, "int8_matmul": 1}
+    assert kernels.LAUNCHES == {"int4_matmul": 3, "log_mel": 0, "int8_matmul": 1,
+                               "ctc_lattice": 0}
 
 
 def test_streaming_cache_matches_forward_long(cuda):
@@ -423,11 +435,6 @@ def test_training_step_kernel_vs_plain(cuda):
     ±2e-3 of noise on the plain log-mel (the kernel's bound against its
     plain version) does to the same step (chip_smoke.train_vs_plain, which
     also prints the bf16 step)."""
-    import sys
-
-    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    import chip_smoke
-
     out = chip_smoke.train_vs_plain(torch, np)["float32"]
     assert out["d_loss"] <= out["tol_loss"] and out["d_grad"] <= out["tol_grad"]
 
@@ -446,7 +453,8 @@ def test_teacher_forward_launches_int4(cuda):
     with torch.no_grad():
         lp, _ = teacher(audio, lens)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0}
+    assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0,
+                               "ctc_lattice": 0}
     assert not lp.is_inference() and lp.grad_fn is None
     student_like = torch.zeros_like(lp, requires_grad=True)
     (torch.exp(lp) * (lp - student_like)).sum().backward()
@@ -464,11 +472,17 @@ def test_wrappers_raise_on_inputs_that_need_a_gradient(cuda):
     x = torch.randn(3, 64, device=cuda, requires_grad=True)
     pre = torch.randn(1, 4000, device=cuda, requires_grad=True)
     tables = frontend.mel_tables(cuda)
+    lp = torch.randn(2, 40, 12, device=cuda).log_softmax(-1).requires_grad_()
+    tokens = torch.tensor([[1, 2, 3, 0]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3], dtype=torch.int32, device=cuda)
+    t_valid = torch.tensor([40, 20], dtype=torch.int32, device=cuda)
     calls = [lambda: quant.int4_matmul(x, packed, scales),
              lambda: quant.int4_dense(x, packed, scales),
              lambda: quant.int8_matmul(x, q, s8),
              lambda: quant.int8_dense(x, q, s8),
-             lambda: frontend.fused_log_mel(pre, tables)]
+             lambda: frontend.fused_log_mel(pre, tables),
+             lambda: ctc.ctc_forward_scores(lp[0], 40, tokens, lens, 11),
+             lambda: ctc.ctc_forward_scores_batch(lp, t_valid, tokens, lens, 11)]
     kernels.reset_launches()
     for call in calls:
         with pytest.raises(RuntimeError, match="forward only"):
@@ -478,7 +492,8 @@ def test_wrappers_raise_on_inputs_that_need_a_gradient(cuda):
         for call in calls:
             assert call().grad_fn is None
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"int4_matmul": 2, "log_mel": 1, "int8_matmul": 2}
+    assert kernels.LAUNCHES == {"int4_matmul": 2, "log_mel": 1, "int8_matmul": 2,
+                               "ctc_lattice": 2}
 
 
 @pytest.mark.parametrize("keep", [12, 8, 6])
@@ -499,7 +514,8 @@ def test_pruned_forward_launches(cuda, keep):
     kernels.reset_launches()
     _lp, ids, t = runtime.forward(audio)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"int4_matmul": 11 * keep + 2, "log_mel": 1, "int8_matmul": 0}
+    assert kernels.LAUNCHES == {"int4_matmul": 11 * keep + 2, "log_mel": 1,
+                               "int8_matmul": 0, "ctc_lattice": 0}
     from tilawa_tpu_torch.pipeline.runtime import EncoderRuntime
 
     plain = EncoderRuntime(dataclasses.replace(runtime.config, use_pallas=False),
@@ -532,3 +548,78 @@ def test_context_sweep_rows_equal_single_forwards(champion_cuda):
             assert int(t1[0]) == t
             np.testing.assert_array_equal(lps[i, :t].view(np.int32),
                                           lp1[0, :t].cpu().numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("label,t,v,c,l_pad,t_valid,lengths", chip_smoke.LATTICE_CASES)
+def test_ctc_lattice_kernel_matches_plain(cuda, label, t, v, c, l_pad, t_valid, lengths):
+    """The lattice calls the paths make (chip_smoke.LATTICE_CASES: the
+    rerank's chunks, the phoneme shape, the tracker's two candidates)."""
+    lp, tokens, lens = chip_smoke.lattice_case(torch, np, t, v, c, l_pad, lengths,
+                                               t_valid + l_pad)
+    kernels.reset_launches()
+    out = ctc.ctc_forward_scores(lp, t_valid, tokens, lens, v - 1)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctc_lattice"] == 1
+    ref = ctc.ctc_forward_scores_plain(lp, t_valid, tokens, lens, v - 1)
+    assert out.shape == (c,) and out.dtype == torch.float32
+    chip_smoke.lattice_gate(torch, label, out, ref)
+    live = (2 * lens + 1 <= t_valid) & (lens > 0)
+    assert torch.equal(torch.isfinite(out), live)
+
+
+def test_ctc_lattice_batch_kernel_matches_plain(cuda):
+    """B = 4 rows with four t_valid (one launch), each row also against the
+    single form."""
+    lp, tokens, lens = chip_smoke.lattice_case(torch, np, 512, 1025, 64, 128,
+                                               (128, 90, 33, 6, 1), 4)
+    rows = torch.stack([lp, lp.flip(0), lp.roll(7, 0), lp * 1.5]).log_softmax(-1)
+    t_valid = torch.tensor([512, 257, 100, 1], dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    out = ctc.ctc_forward_scores_batch(rows, t_valid, tokens, lens, 1024)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctc_lattice"] == 1
+    assert out.shape == (4, 64)
+    chip_smoke.lattice_gate(torch, "batch", out,
+                            ctc.ctc_forward_scores_batch_plain(rows, t_valid, tokens, lens, 1024))
+    for b, tv in enumerate((512, 257, 100, 1)):
+        assert torch.equal(out[b], ctc.ctc_forward_scores(rows[b], tv, tokens, lens, 1024))
+
+
+def test_ctc_lattice_makes_no_host_sync(cuda):
+    """With log-probs, tokens, lengths and the batch's t_valid resident on
+    the card, neither form synchronizes with the host (PyTorch's sync
+    debug mode raises on a synchronizing call)."""
+    lp, tokens, lens = chip_smoke.lattice_case(torch, np, 512, 1025, 512, 128, (100, 50, 3), 9)
+    t_valid = torch.tensor([400, 300], dtype=torch.int32, device=cuda)
+    rows = torch.stack([lp, lp])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        single = ctc.ctc_forward_scores(lp, 400, tokens, lens, 1024)
+        batch = ctc.ctc_forward_scores_batch(rows, t_valid, tokens, lens, 1024)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(batch[0], single)
+    chip_smoke.lattice_gate(torch, "no sync", single,
+                            ctc.ctc_forward_scores_plain(lp, 400, tokens, lens, 1024))
+
+
+def test_rerank_scores_through_the_kernel(cuda):
+    """score_token_lists on a card-resident tensor launches the lattice once
+    a `_score_feasible` chunk, and its scores equal the plain version's."""
+    from tilawa_tpu_torch.pipeline import rerank
+
+    lp, _tokens, _lens = chip_smoke.lattice_case(torch, np, 512, 1025, 1, 128, (), 3)
+    rng = np.random.default_rng(3)
+    lists = [list(rng.integers(0, 1024, size=n)) for n in (3, 40, 200, 0, 128, 129, 17)]
+    kernels.reset_launches()
+    got = rerank.score_token_lists(lp, 450, lists, blank_id=1024)
+    assert kernels.LAUNCHES["ctc_lattice"] == 2     # the L_pad 128 and 512 chunks
+    real = rerank.ctc_forward_scores
+    rerank.ctc_forward_scores = ctc.ctc_forward_scores_plain
+    try:
+        ref = rerank.score_token_lists(lp, 450, lists, blank_id=1024)
+    finally:
+        rerank.ctc_forward_scores = real
+    chip_smoke.lattice_gate(torch, "score_token_lists", got, ref)

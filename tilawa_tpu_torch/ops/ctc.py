@@ -1,10 +1,14 @@
 """CTC primitives: greedy collapse and batched forward-algorithm scoring.
 
 Port of tilawa_tpu/ops/ctc.py. The JAX scorer is one lax.scan over all
-frames; here it is plain PyTorch batched over candidates, with a Python
-loop over frames that stops at `t_valid` — the JAX step is the identity
-past it, so the result is the same (a hand kernel for the time loop is
-queued in ROADMAP.md).
+frames for every candidate at once. Here `ctc_forward_scores` and
+`ctc_forward_scores_batch` launch one hand-written CUDA kernel
+(csrc/ctc_lattice.cu) for a CUDA tensor: the whole time loop of each
+candidate runs in one thread block, padded and infeasible candidates
+return at once, and the loop stops at each row's `t_valid`. For a CPU
+tensor they run the plain versions, `ctc_forward_scores_plain` (batched
+over candidates, a Python loop over frames that stops at `t_valid`: the
+JAX step is the identity past it) and `ctc_forward_scores_batch_plain`.
 
 Scores are length-normalized NLL: score[c] = -log p(tokens_c | logprobs) / L_c,
 +inf for infeasible candidates (2L+1 > t_valid or L == 0).
@@ -12,15 +16,21 @@ Scores are length-normalized NLL: score[c] = -log p(tokens_c | logprobs) / L_c,
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
 import torch
 
+from tilawa_tpu_torch.ops import kernels
+
 NEG_INF = -1e30
+# dynamic shared memory a block may use on the H100 (227 KB): the kernel's
+# double-buffered lattice and tokens, (2 (2 L_pad + 1) + L_pad) 4-byte words
+_MAX_SMEM = 232448
 
 
-def ctc_forward_scores(
+def ctc_forward_scores_plain(
     log_probs: torch.Tensor,   # [T, V] float32
     t_valid: int,              # true frame count (<= T)
     tokens: torch.Tensor,      # [C, L] int, zero-padded
@@ -79,6 +89,93 @@ def ctc_forward_scores(
     return torch.where(feasible, norm, torch.inf)
 
 
+def ctc_forward_scores_batch_plain(
+    log_probs: torch.Tensor,   # [B, T, V] float32
+    t_valid: torch.Tensor,     # [B] true frame counts
+    tokens: torch.Tensor,      # [C, L] int, zero-padded
+    lengths: torch.Tensor,     # [C] int
+    blank_id: int,
+) -> torch.Tensor:
+    """ctc_forward_scores_plain of every candidate against each of B
+    log-prob matrices → [B, C] (the JAX package's vmap over B, one row at a
+    time here)."""
+    rows = [ctc_forward_scores_plain(lp, tv, tokens, lengths, blank_id)
+            for lp, tv in zip(log_probs, t_valid.tolist())]
+    if not rows:
+        return torch.empty((0, tokens.shape[0]), dtype=log_probs.dtype, device=log_probs.device)
+    return torch.stack(rows)
+
+
+_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p] * 2)
+
+
+def _launch(what: str, log_probs: torch.Tensor, t_valid, tokens: torch.Tensor,
+            lengths: torch.Tensor, blank_id: int) -> torch.Tensor:
+    """One launch of the lattice kernel for log_probs [B, T, V] on a CUDA
+    device against every candidate → scores [B, C]. t_valid is a host int
+    (one for every row) or a [B] tensor on the card, read there: no host
+    sync either way."""
+    if log_probs.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got {log_probs.device}")
+    if log_probs.dtype != torch.float32 or log_probs.shape[-2] == 0:
+        raise ValueError(f"{what}: log_probs must be float32 with at least one frame")
+    if tokens.dim() != 2 or lengths.shape != (tokens.shape[0],):
+        raise ValueError(f"{what}: tokens must be [C, L] and lengths [C]")
+    if tokens.device != log_probs.device or lengths.device != log_probs.device:
+        raise ValueError(f"{what}: tokens and lengths must be on {log_probs.device}")
+    if not 0 <= blank_id < log_probs.shape[-1]:
+        raise ValueError(f"{what}: blank {blank_id} outside the vocabulary")
+    (b, t_total, vocab), (c, l_pad) = log_probs.shape, tokens.shape
+    if 4 * (2 * (2 * l_pad + 1) + l_pad) > _MAX_SMEM:
+        raise ValueError(f"{what}: L = {l_pad} does not fit one block's shared memory")
+    rows, t_scalar = None, 0
+    if isinstance(t_valid, torch.Tensor):
+        if t_valid.shape != (b,) or t_valid.device != log_probs.device:
+            raise ValueError(f"{what}: t_valid must be [B] on the log-probs' device")
+        rows = t_valid.to(torch.int32).contiguous()
+    else:
+        t_scalar = int(t_valid)
+    if log_probs.stride(-1) != 1:
+        log_probs = log_probs.contiguous()
+    tokens = tokens.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    scores = torch.empty((b, c), dtype=torch.float32, device=log_probs.device)
+    if b and c:
+        fn = kernels.function("ctc_lattice", "tilawa_ctc_lattice", _ARGTYPES)
+        err = fn(
+            log_probs.data_ptr(), log_probs.stride(0), log_probs.stride(1), b, t_total, vocab,
+            rows.data_ptr() if rows is not None else None, t_scalar, tokens.data_ptr(),
+            lengths.data_ptr(), c, l_pad, blank_id, scores.data_ptr(),
+            torch.cuda.current_stream(log_probs.device).cuda_stream,
+        )
+        kernels.check(err, what)
+        kernels.LAUNCHES["ctc_lattice"] += 1
+    return scores
+
+
+def ctc_forward_scores(
+    log_probs: torch.Tensor,   # [T, V] float32
+    t_valid: int,              # true frame count (<= T)
+    tokens: torch.Tensor,      # [C, L] int, zero-padded
+    lengths: torch.Tensor,     # [C] int — true token counts
+    blank_id: int,
+) -> torch.Tensor:
+    """Length-normalized CTC NLL of every candidate against one log-prob
+    matrix → [C] float32; +inf marks infeasible (2L+1 > t_valid or L == 0).
+    One launch of the lattice kernel for a CUDA tensor (tokens and lengths
+    on the same card, t_valid a host int: no host sync);
+    ctc_forward_scores_plain for a CPU tensor."""
+    kernels.forward_only("ctc_forward_scores", log_probs)
+    if log_probs.device.type == "cpu":
+        return ctc_forward_scores_plain(log_probs, t_valid, tokens, lengths, blank_id)
+    if log_probs.dim() != 2:
+        raise ValueError("ctc_forward_scores: log_probs must be [T, V]")
+    return _launch("ctc_forward_scores", log_probs[None], t_valid, tokens, lengths,
+                   blank_id)[0]
+
+
 def ctc_forward_scores_batch(
     log_probs: torch.Tensor,   # [B, T, V] float32
     t_valid: torch.Tensor,     # [B] true frame counts
@@ -87,14 +184,18 @@ def ctc_forward_scores_batch(
     blank_id: int,
 ) -> torch.Tensor:
     """ctc_forward_scores of every candidate against each of B log-prob
-    matrices → [B, C] (the JAX package's vmap over B, one row at a time
-    here). Its caller is the sharded dispatch (parallel/dryrun.py
-    recognize_scores), which calls it on each data rank's rows."""
-    rows = [ctc_forward_scores(lp, tv, tokens, lengths, blank_id)
-            for lp, tv in zip(log_probs, t_valid.tolist())]
-    if not rows:
-        return torch.empty((0, tokens.shape[0]), dtype=log_probs.dtype, device=log_probs.device)
-    return torch.stack(rows)
+    matrices → [B, C] (the JAX package's vmap over B). For a CUDA tensor
+    one launch for all B rows, each row's t_valid read on the card;
+    ctc_forward_scores_batch_plain for a CPU tensor. Its caller is the
+    sharded dispatch (parallel/dryrun.py recognize_scores), which calls it
+    on each data rank's rows."""
+    kernels.forward_only("ctc_forward_scores_batch", log_probs)
+    if log_probs.device.type == "cpu":
+        return ctc_forward_scores_batch_plain(log_probs, t_valid, tokens, lengths, blank_id)
+    if log_probs.dim() != 3 or not isinstance(t_valid, torch.Tensor):
+        raise ValueError("ctc_forward_scores_batch: log_probs must be [B, T, V] and t_valid "
+                         "a [B] tensor")
+    return _launch("ctc_forward_scores_batch", log_probs, t_valid, tokens, lengths, blank_id)
 
 
 def collapse_ctc(ids, blank_id: int) -> list[int]:

@@ -36,7 +36,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("int4_matmul", "log_mel", "int8_matmul")
+KERNELS = ("int4_matmul", "log_mel", "int8_matmul", "ctc_lattice")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

@@ -18,6 +18,7 @@ import torch
 
 from tilawa_tpu_torch.data.assets import BLANK_ID
 from tilawa_tpu_torch.data.token_store import TokenStore
+from tilawa_tpu_torch.device import upload
 from tilawa_tpu_torch.ops.ctc import (
     TOKEN_BUCKETS,
     _next_bucket,
@@ -34,7 +35,10 @@ def span_len(c: dict) -> int:
     return (c.get("ayah_end") or c["ayah"]) - c["ayah"] + 1
 
 
-# Bound on the [T, C, L] emission-gather buffer per scorer call (float32).
+# Bound on the [T, C, L] float32 emission-gather buffer of one scorer call,
+# as in the JAX package. Only the plain CPU scorer builds that buffer; the
+# CUDA kernel reads emissions from log_probs, so on the card the bound only
+# sets how many chunks (launches) a call takes.
 _MAX_GATHER_BYTES = int(os.getenv("TILAWA_RERANK_GATHER_BYTES", str(768 << 20)))
 
 
@@ -76,10 +80,7 @@ def _score_feasible(
             cand_buckets=(c_pad,),
         )
         scores = ctc_forward_scores(
-            lp_dev, t,
-            torch.from_numpy(tokens).to(lp_dev.device),
-            torch.from_numpy(lengths).to(lp_dev.device),
-            blank_id,
+            lp_dev, t, upload(tokens, lp_dev.device), upload(lengths, lp_dev.device), blank_id,
         ).cpu().numpy()
         out[pos:end] = scores[: len(chunk)]
         pos = end
