@@ -7,6 +7,15 @@
                                  # exports/heldout-int4 (see the end of this text)
     python3 chip_smoke.py --layouts 2x2,1x4,4x1
                                  # the multi-device phase alone on four cards
+    python3 chip_smoke.py --lattice
+                                 # the lattice kernel alone: every shape under
+                                 # each variant that fits, each bitwise its
+                                 # plain version, timed
+    python3 chip_smoke.py --lattice-compare _parent
+                                 # this checkout's lattice kernel beside the
+                                 # port in _parent (e.g. `git archive` of the
+                                 # parent commit's tilawa_tpu_torch/, in an
+                                 # ignored directory) at every lattice shape
 
 Phases (each prints its elapsed seconds; any failure exits non-zero
 without the final line):
@@ -28,10 +37,13 @@ without the final line):
                  also at the context sweep's M = B·T and (B, N); the CTC
                  lattice at the rerank's chunks (T 512, C 512, L_pad 128;
                  T 1024, C 64, L_pad 512), the phoneme shape (V 70, L_pad
-                 3,072, a row at L 2,598), the tracker's C = 2 and the batch
-                 form at B = 4 (equal +inf patterns, 1e-5, equal argmin);
-                 timings of the kernel, the plain version and a one-call
-                 library yardstick
+                 3,072, a row at L 2,598), the tracker's C = 2, the chain
+                 floor (one candidate of one token), chunks whose rows are
+                 all live (LATTICE_CASES) and the batch form at B = 4
+                 (equal +inf patterns, 1e-5, equal argmin); timings of
+                 the kernel, the plain version and a one-call library
+                 yardstick, the variant (ops/ctc.py lattice_plan) each shape
+                 ran and its us a frame
   4. main path   champion-int4 Recognizer(tta=True).predict over wav clips
                  of benchmark/test_corpus (each must match the manifest),
                  plus the >25 s transcribe fallback; launch counters are
@@ -347,7 +359,15 @@ LATTICE_TOL = 1e-5  # the CTC lattice kernel against its plain version, rtol and
 # padding, a row at exactly 2L+1 = t_valid, runs of a repeated token), with
 # infeasible rows, and at t_valid 1; a 64-row chunk at L_pad 512; the
 # phoneme rerank's V 70 at L_pad 3,072 (a row at L 2,598, feasible at the
-# 8192-frame bucket); the tracker's two-candidate calls
+# 8192-frame bucket); the tracker's two-candidate calls; one candidate of
+# one token, whose time over t_valid - 1 frames is the kernel's own floor a
+# frame (its dependent chain). Then chunks whose rows are all live, as
+# score_token_lists sends them (it keeps only feasible candidates): 512 at
+# L_pad 128 and at L_pad 512 with t_valid 304 (the champion rerank's
+# calls), 512 at L_pad 512 with t_valid 1100 (a clip past 1,025 frames:
+# lengths up to 512), a phoneme rerank call (64-row bucket, 40 live, L_pad
+# 512, t_valid 690) and 64 rows of the phoneme bucket 3,072 (L 2,561 to
+# 2,598).
 LATTICE_CASES = (
     ("rerank chunk", 512, 1025, 512, 128, 257, (128, 127, 100, 64, 40, 17, 5, 3, 2, 1)),
     ("infeasible rows", 512, 1025, 512, 128, 201, (128, 101, 100, 99, 50, 1)),
@@ -355,6 +375,13 @@ LATTICE_CASES = (
     ("L_pad 512", 1024, 1025, 64, 512, 1000, (499, 500, 512, 300, 128, 129, 7)),
     ("phoneme", 8192, 70, 64, 3072, 5197, (2598, 2599, 1500, 700, 64, 1)),
     ("tracker", 512, 1025, 2, 128, 300, (6, 4)),
+    ("chain floor", 512, 1025, 1, 128, 257, (1,)),
+    ("dense 128", 512, 1025, 512, 128, 304, tuple(8 + 120 * r // 511 for r in range(512))),
+    ("dense 512", 512, 1025, 512, 512, 304, tuple(129 + 22 * r // 511 for r in range(512))),
+    ("dense 512 long", 2048, 1025, 512, 512, 1100,
+     tuple(129 + 383 * r // 511 for r in range(512))),
+    ("phoneme call", 1024, 70, 64, 512, 690, tuple(129 + 215 * r // 39 for r in range(40))),
+    ("phoneme dense", 8192, 70, 64, 3072, 5197, tuple(2561 + 37 * r // 63 for r in range(64))),
 )
 LATTICE_BATCH_T_VALID = (512, 257, 100, 1)   # the batch form's B = 4 rows
 
@@ -902,6 +929,20 @@ def lattice_bound_ms(np, t_valids, t: int, v: int, tokens, lens, base: int,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), ops
 
 
+def lattice_log1p_mismatches(torch, kernels) -> int:
+    """Floats, of all 2^32, where the lattice kernel's branch-free log1pf
+    differs in any bit from CUDA's log1pf (one launch of the library's
+    checker, not a lattice launch)."""
+    import ctypes
+
+    fn = kernels.function("ctc_lattice", "tilawa_ctc_lattice_check_log1p",
+                          [ctypes.c_void_p, ctypes.c_void_p])
+    bad = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    kernels.check(fn(bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                  "lattice log1p check")
+    return int(bad.item())
+
+
 def check_lattice(torch, np, ctc, flush) -> dict:
     """The CTC lattice kernel at every LATTICE_CASES shape and the batch
     form at B = 4 with four t_valid, against its plain version (lattice_gate),
@@ -913,6 +954,13 @@ def check_lattice(torch, np, ctc, flush) -> dict:
     champion's rerank chunk, every shape under `shapes`."""
     import torch.nn.functional as F
 
+    from tilawa_tpu_torch.ops import kernels
+
+    mismatches = lattice_log1p_mismatches(torch, kernels)
+    print(f"  lattice log1pf_flat against CUDA's log1pf: {mismatches} of 2^32 floats differ",
+          flush=True)
+    if mismatches:
+        raise AssertionError("the lattice's log1pf is not CUDA's")
     rows = {}
 
     def library_fn(lp_tcv, tokens, input_lengths, lens):
@@ -928,6 +976,9 @@ def check_lattice(torch, np, ctc, flush) -> dict:
         if not torch.equal(torch.isfinite(out.reshape(len(t_valids), c)), feasible):
             raise AssertionError(f"lattice {label}: finite scores are not the feasible rows")
         slow = t * l_pad > 4 << 20          # the phoneme shape: the plain loop takes seconds
+        plan = ctc.lattice_plan(l_pad, c, len(t_valids),
+                                t_valid=t_valids[0] if len(t_valids) == 1 else None)
+        frames = min(max(t_valids), t) - 1
         ms = time_cuda(torch, kernel, flush)
         plain_ms = time_cuda(torch, plain, flush, reps=1 if slow else 3, warmup=0 if slow else 1)
         lib = library()
@@ -936,9 +987,11 @@ def check_lattice(torch, np, ctc, flush) -> dict:
         lib_ms = time_cuda(torch, library, flush, reps=3 if slow else 20, warmup=1 if slow else 3)
         bound, by, ops = lattice_bound_ms(np, t_valids, t, v, tokens.cpu().numpy(), lens.tolist(),
                                           lp.data_ptr(), lp.stride(0) * 4 if lp.dim() == 3 else 0)
+        us_frame = ms * 1e3 / frames if frames > 0 else None
         print(f"  lattice {label:15s} T={t} V={v} C={c} L_pad={l_pad} t_valid={list(t_valids)} "
               f"(the serial chain, frames) live {int((lens > 0).sum())}, feasible "
-              f"{int(feasible.sum())}: max|Δ|={err:.3g}  kernel {ms:.4f} ms  plain "
+              f"{int(feasible.sum())}; {plan.describe()}: max|Δ|={err:.3g}  kernel {ms:.4f} ms "
+              f"({'-' if us_frame is None else f'{us_frame:.4f}'} us a frame)  plain "
               f"{plain_ms:.4f} ms  F.ctc_loss {lib_ms:.4f} ms (|Δ| on feasible rows "
               f"{lib_err:.3g})  bound {bound:.5f} ms ({by}; {ops} transcendentals at "
               f"{MUFU_OPS_S:.4g}/s)", flush=True)
@@ -946,7 +999,8 @@ def check_lattice(torch, np, ctc, flush) -> dict:
                        "t_valid": list(t_valids), "feasible": int(feasible.sum()),
                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "library_abs_err": lib_err, "bound_ms": bound, "bound_by": by,
-                       "transcendentals": ops}
+                       "transcendentals": ops, "variant": plan.variant,
+                       "plan": dataclasses.asdict(plan), "us_per_frame": us_frame}
 
     for i, (label, t, v, c, l_pad, t_valid, lengths) in enumerate(LATTICE_CASES):
         lp, tokens, lens = lattice_case(torch, np, t, v, c, l_pad, lengths, SEED + 10 + i)
@@ -985,6 +1039,7 @@ def check_lattice(torch, np, ctc, flush) -> dict:
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         **{k: rows["rerank chunk"][k] for k in keys},
         "t_valid": rows["rerank chunk"]["t_valid"][0],
+        "variants": {label: r["variant"] for label, r in rows.items()},
         "shapes": list(rows.values()),
     }
 
@@ -2422,28 +2477,21 @@ def lattice_report(torch, rerank, what: str, rec: dict, predicts: int) -> dict:
     """Per-call p50 / p90 and ms per clip (`predicts`: the clips, a runner's
     warm-up included) of the recorded calls on the kernel path, beside the
     plain path's: each call replayed here at its own log-probs and lists
-    with the plain scorer (rerank.ctc_forward_scores swapped for
-    ctc_forward_scores_plain), its scores held to the kernel's
-    (lattice_gate). Host clock, both ending in the scores' host read."""
-    from tilawa_tpu_torch.ops import ctc
-
+    with the plain scorer (score_token_lists(plain=True), chunked under the
+    gather cap), its scores held to the kernel's (lattice_gate). Host
+    clock, both ending in the scores' host read."""
     calls = rec["calls"]
     if not calls:
         print(f"  {what}: no lattice call", flush=True)
         return {"calls": 0, "chunks": rec["chunks"]}
     plain, err = [], 0.0
-    real = rerank.ctc_forward_scores
-    rerank.ctc_forward_scores = ctc.ctc_forward_scores_plain
-    try:
-        for call in calls:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            ref = rerank.score_token_lists(call["lp"], call["t_valid"], call["lists"],
-                                           blank_id=call["blank"])
-            plain.append(time.perf_counter() - t)
-            err = max(err, lattice_gate(torch, f"{what} lattice call", call["scores"], ref))
-    finally:
-        rerank.ctc_forward_scores = real
+    for call in calls:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ref = rerank.score_token_lists(call["lp"], call["t_valid"], call["lists"],
+                                       blank_id=call["blank"], plain=True)
+        plain.append(time.perf_counter() - t)
+        err = max(err, lattice_gate(torch, f"{what} lattice call", call["scores"], ref))
 
     def pcts(secs):
         v = sorted(secs)
@@ -3602,6 +3650,210 @@ def run_layouts(spec: str) -> int:
     return 0
 
 
+def lattice_plans(ctc, l_pad: int, c: int, b: int, t_valid) -> list:
+    """lattice_plan's own layout for (L_pad, C, B, t_valid) first, then
+    each other variant it accepts there."""
+    plans = [ctc.lattice_plan(l_pad, c, b, t_valid=t_valid)]
+    for variant in ("warp", "group", "cluster"):
+        try:
+            plan = ctc.lattice_plan(l_pad, c, b, variant=variant, t_valid=t_valid)
+        except ValueError:      # the variant cannot hold these states
+            continue
+        if plan not in plans:
+            plans.append(plan)
+    return plans
+
+
+def lattice_inputs(torch, np, ctc, label, t, v, c, l_pad, t_valids, lengths, seed) -> tuple:
+    """One sweep shape on the card: (log-probs [B, T, V], t_valid as the
+    wrapper takes it, tokens, lengths, the plain version's scores [B, C]);
+    B = 4 rows for the batch form, as check_lattice builds them."""
+    lp, tokens, lens = lattice_case(torch, np, t, v, c, l_pad, lengths, seed)
+    if len(t_valids) > 1:
+        lp = torch.stack([lp, lp.flip(0), lp.roll(7, 0), lp * 1.5]).log_softmax(-1)
+        tv = torch.tensor(t_valids, dtype=torch.int32, device=DEVICE)
+        ref = ctc.ctc_forward_scores_batch_plain(lp, tv, tokens, lens, v - 1)
+    else:
+        lp, tv = lp[None], t_valids[0]
+        ref = ctc.ctc_forward_scores_plain(lp[0], tv, tokens, lens, v - 1)[None]
+    return lp, tv, tokens, lens, ref
+
+
+def lattice_sweep_cases() -> list:
+    """(label, T, V, C, L_pad, t_valids, lengths, seed): every LATTICE_CASES
+    row with check_lattice's seed, then the batch form's."""
+    cases = [(label, t, v, c, l_pad, (t_valid,), lengths, SEED + 10 + i)
+             for i, (label, t, v, c, l_pad, t_valid, lengths) in enumerate(LATTICE_CASES)]
+    cases.append(("batch B=4", 512, 1025, 64, 128, LATTICE_BATCH_T_VALID,
+                  (128, 90, 33, 6, 1), SEED + 9))
+    return cases
+
+
+def device_line(torch) -> tuple[str, int, str]:
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"  torch {torch.__version__} cuda {torch.version.cuda}; {kind}; "
+          f"nvidia-smi: {smi}", flush=True)
+    return kind, torch.cuda.device_count(), smi
+
+
+def run_lattice_sweep() -> int:
+    """--lattice: the build, the lattice's kernel-vs-plain check at every
+    shape (check_lattice), then every shape under each layout lattice_plan
+    accepts there (lattice_plans): scores bitwise the plain version's, the
+    kernel's ms and us a frame. A layout that fails to build, to launch or
+    to match fails the run."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    from tilawa_tpu_torch.ops import ctc, kernels
+
+    with phase("device"):
+        kind, count, smi = device_line(torch)
+    with phase("build"):
+        for name, r in kernels.build(("ctc_lattice",)).items():
+            print(f"  {name}: {r['seconds']:.1f} s -> {Path(r['path']).name}", flush=True)
+            for line in r["log"].splitlines():
+                if any(w in line for w in ("registers", "spill", "smem", "stack", "Compiling")):
+                    print(f"    {line.strip()}", flush=True)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEVICE)
+    with phase("kernels vs plain"):
+        entry = check_lattice(torch, np, ctc, flush)
+    with phase("clocks"):
+        # the SM clock while one candidate's chain runs back to back (~2 s)
+        lp, tokens, lens = lattice_case(torch, np, 512, 1025, 1, 128, (1,), SEED)
+        smi_clocks = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+             "--format=csv,noheader", "-lms", "250"], stdout=subprocess.PIPE, text=True)
+        t_end = time.perf_counter() + 2.0
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                ctc.ctc_forward_scores(lp, 257, tokens, lens, 1024)
+            torch.cuda.synchronize()
+        smi_clocks.terminate()
+        clocks = smi_clocks.communicate(timeout=30)[0].strip().splitlines()
+        print(f"  SM clock, max, power while the chain floor runs: {clocks}", flush=True)
+        del lp
+    sweep = []
+    with phase("lattice layouts"):
+        for label, t, v, c, l_pad, t_valids, lengths, seed in lattice_sweep_cases():
+            lp, tv, tokens, lens, ref = lattice_inputs(torch, np, ctc, label, t, v, c, l_pad,
+                                                       t_valids, lengths, seed)
+            frames = min(max(t_valids), t) - 1
+            for plan in lattice_plans(ctc, l_pad, c, len(t_valids),
+                                      t_valids[0] if len(t_valids) == 1 else None):
+                def run(plan=plan):
+                    return ctc._launch("lattice sweep", lp, tv, tokens, lens, v - 1, plan)
+                out = run()
+                torch.cuda.synchronize()
+                if not torch.equal(bits(torch, out), bits(torch, ref)):
+                    raise AssertionError(f"lattice {label} {plan}: not bitwise the plain "
+                                         "version")
+                ms = time_cuda(torch, run, flush)
+                us = ms * 1e3 / frames if frames > 0 else None
+                print(f"  {label:15s} {plan.describe()}: bitwise; {ms:.4f} ms"
+                      f" ({'-' if us is None else f'{us:.4f}'} us a frame)", flush=True)
+                sweep.append({"label": label, "plan": dataclasses.asdict(plan), "ms": ms,
+                              "us_per_frame": us})
+            del lp, ref
+    print(json.dumps({"lattice": entry, "sweep": sweep, "clocks": clocks, "device": kind,
+                      "count": count, "nvidia_smi": smi}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+          flush=True)
+    return 0
+
+
+def run_lattice_times(root: str) -> int:
+    """--lattice-times ROOT: the lattice kernel of the port in checkout ROOT
+    (its ops/ctc.py, built from its own sources) at every lattice_sweep_cases
+    shape with that port's default layout: scores bitwise that port's plain
+    version, kernel ms (CUDA events, L2 flushed). One JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
+        return 1
+    sys.path.insert(0, str(Path(root).resolve()))
+    import numpy as np
+
+    from tilawa_tpu_torch.ops import ctc
+
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEVICE)
+    times = {}
+    for label, t, v, c, l_pad, t_valids, lengths, seed in lattice_sweep_cases():
+        lp, tv, tokens, lens, ref = lattice_inputs(torch, np, ctc, label, t, v, c, l_pad,
+                                                   t_valids, lengths, seed)
+        if len(t_valids) > 1:
+            def run():
+                return ctc.ctc_forward_scores_batch(lp, tv, tokens, lens, v - 1)
+        else:
+            def run():
+                return ctc.ctc_forward_scores(lp[0], tv, tokens, lens, v - 1)[None]
+        out = run()
+        torch.cuda.synchronize()
+        if not torch.equal(bits(torch, out), bits(torch, ref)):
+            raise AssertionError(f"lattice {label} in {root}: not bitwise its plain version")
+        times[label] = time_cuda(torch, run, flush)
+        del lp, ref
+    print(json.dumps({"root": root, "ms": times,
+                      "source": str(Path(ctc.__file__).resolve())}), flush=True)
+    return 0
+
+
+def run_lattice_compare(roots: str) -> int:
+    """--lattice-compare ROOT,...: this checkout's lattice kernel beside
+    each other checkout's (a `git archive` of another commit, unpacked in
+    an ignored directory) at every lattice_sweep_cases shape, all in this
+    one call: --lattice-times in a child process a checkout, in the order
+    this, ROOT..., then reversed, so each is timed twice, first and last
+    around the others. Prints each shape's two times a checkout and their
+    ratio to this checkout's, then the nvidia-smi line and the ok line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr, flush=True)
+        return 1
+    kind, count, smi = device_line(torch)
+    order = [str(ROOT)] + [str(Path(r).resolve()) for r in roots.split(",") if r]
+    for r in order[1:]:
+        if not (Path(r) / "tilawa_tpu_torch" / "ops" / "ctc.py").is_file():
+            print(f"chip_smoke: no port in {r}", file=sys.stderr, flush=True)
+            return 1
+    runs: dict[str, list[dict]] = {r: [] for r in order}
+    for r in order + order[::-1]:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--lattice-times",
+                               r], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr, flush=True)
+            print(f"chip_smoke: --lattice-times {r} failed", file=sys.stderr, flush=True)
+            return 1
+        runs[r].append(json.loads(proc.stdout.strip().splitlines()[-1])["ms"])
+    mine = runs[str(ROOT)]
+    table = {}
+    for label in mine[0]:
+        base = min(m[label] for m in mine)
+        row = {r: [m[label] for m in runs[r]] for r in order}
+        table[label] = row
+        print(f"  {label:15s} " + "  ".join(
+            f"{Path(r).name}: {row[r][0]:.4f} / {row[r][1]:.4f} ms "
+            f"({min(row[r]) / base:.3f}x this)" for r in order), flush=True)
+    print(json.dumps({"lattice_compare": table, "roots": order, "device": kind,
+                      "nvidia_smi": smi}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
+          flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3613,8 +3865,22 @@ def main(argv=None) -> int:
     mode.add_argument("--layouts", default=None, metavar="DATAxMODEL,...",
                       help="run the multi-device phase alone over every card present, one "
                            "mesh a layout, e.g. 2x2,1x4,4x1 on four cards")
+    mode.add_argument("--lattice", action="store_true",
+                      help="run the CTC lattice kernel alone, every shape under each layout "
+                           "that fits")
+    mode.add_argument("--lattice-compare", default=None, metavar="ROOT,...",
+                      help="time this checkout's lattice kernel beside the port in each "
+                           "other checkout ROOT at every lattice shape")
+    mode.add_argument("--lattice-times", default=None, metavar="ROOT",
+                      help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     try:
+        if args.lattice:
+            return run_lattice_sweep()
+        if args.lattice_compare is not None:
+            return run_lattice_compare(args.lattice_compare)
+        if args.lattice_times is not None:
+            return run_lattice_times(args.lattice_times)
         if args.layouts is not None:
             return run_layouts(args.layouts)
         return run(args.bundles)

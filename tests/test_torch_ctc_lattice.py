@@ -173,3 +173,230 @@ def test_wrappers_reject_other_devices():
         tc.ctc_forward_scores(lp, 20, tokens, lens, 5)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tc.ctc_forward_scores_batch(lp[None], torch.tensor([20]), tokens, lens, 5)
+
+
+# The lattice kernel's launch plan (ops/ctc.py lattice_plan) and the
+# rerank's chunk plan (pipeline/rerank.py _chunks): pure host functions, so
+# they are held here; the kernel runs each plan on the card
+# (tests/test_torch_cuda.py -k lattice, chip_smoke.py).
+
+_H100_SMEM = 232448      # shared memory a block may use
+_H100_CLUSTER = 16       # past the portable size: where 8 CTAs cannot hold a candidate
+_CASES = __import__("chip_smoke").LATTICE_CASES
+_CASE_SHAPES = sorted({(l_pad, c, 1) for _label, _t, _v, c, l_pad, _tv, _ls in _CASES}
+                      | {(128, 64, 4)})
+# every token bucket up to L_pad 3,072 (_next_bucket: the rungs, then
+# multiples of the last), the rungs a TILAWA_TOKEN_BUCKETS ladder may add
+# below them, and the widths around each variant's edge
+_BUCKETS = sorted({tc._next_bucket(n, tc.TOKEN_BUCKETS) for n in range(1, 3073)}
+                  | {1, 16, 31, 32, 33, 64, 255, 256, 511, 513})
+
+
+def _holds(plan, l_max):
+    """The plan's layout holds l_max + 1 state pairs, one a thread
+    (csrc/ctc_lattice.cu's own test before it launches)."""
+    if plan.cluster == 1:
+        return 32 * plan.warps >= l_max + 1
+    # a CTA's slice in whole warps, beside its halo warp
+    return -(-(-(-(l_max + 1) // plan.cluster)) // 32) * 32 <= 32 * (plan.warps - 1)
+
+
+def _fits_the_card(plan):
+    limit = tc.GROUP_THREADS if plan.cluster == 1 else tc.CLUSTER_THREADS
+    return (plan.threads <= limit and plan.smem <= _H100_SMEM
+            and plan.cluster in ((1,) if plan.variant != "cluster" else (8, 16))
+            and plan.cluster <= _H100_CLUSTER
+            and 1 <= plan.slots <= tc.MAX_SLOTS and plan.warps * plan.slots <= 32
+            and (plan.cluster == 1 or plan.slots == 1)
+            and 1 <= plan.grid[1] <= 65535 and 1 <= plan.grid[0] < 2**31)
+
+
+@pytest.mark.parametrize("l_pad,c,b", _CASE_SHAPES + [(l, 512, 1) for l in _BUCKETS])
+def test_lattice_plan_fits_the_card(l_pad, c, b):
+    """Every chip_smoke.LATTICE_CASES shape (with no t_valid, and with each
+    of its rows' t_valid), the batch form's and every token bucket up to
+    3,072 (C 512, the rerank's chunk) get a variant whose threads, shared
+    memory and cluster fit the H100 and whose layout holds the longest
+    candidate that can be feasible; the plan is a pure function of (L_pad,
+    C, B, t_valid)."""
+    t_valids = [None] + [tv for _l, _t, _v, cc, lp, tv, _ls in _CASES
+                         if (lp, cc) == (l_pad, c) and b == 1]
+    for t_valid in t_valids:
+        plan = tc.lattice_plan(l_pad, c, b, t_valid=t_valid)
+        assert _fits_the_card(plan), plan
+        assert _holds(plan, tc.longest_feasible(l_pad, t_valid)), plan
+        if plan.cluster > tc.PORTABLE_CLUSTER:   # 16 only where 8 cannot hold it
+            assert tc.longest_feasible(l_pad, t_valid) + 1 > 8 * 15 * 32
+        assert plan == tc.lattice_plan(l_pad, c, b, t_valid=t_valid)
+        if plan.cluster == 1:          # a group a candidate, several a block
+            assert plan.grid[0] * plan.slots >= c
+        else:                          # a cluster a candidate
+            assert plan.grid[0] == c * plan.cluster
+        assert plan.grid[1] == b
+
+
+def test_lattice_plan_variant_by_length():
+    """One state pair a thread; one warp where the states fit a warp, a
+    group of warps where they fit one block (up to 17 warps: the 512 token
+    bucket's L + 1 = 513, the champion's 128 and 512), else a cluster of 8
+    CTAs (the phoneme rerank's long buckets), 16 where 8 cannot hold the
+    candidate; padded rows share blocks: a 512-row chunk at L_pad 128
+    takes fewer blocks than rows."""
+    assert tc.lattice_plan(31, 512, 1).variant == "warp"
+    assert tc.lattice_plan(128, 512, 1).grid == (171, 1)   # 3 groups of 5 warps a block
+    for l_pad in (32, 128, 255, 256, 511, 512, 543):
+        for c in (2, 64, 512):
+            plan = tc.lattice_plan(l_pad, c, 1)
+            assert plan.variant == "group" and plan.warps == -(-(l_pad + 1) // 32)
+    for l_pad in (544, 1024, 2048, 3072, 3839, 3840, 7679):
+        plan = tc.lattice_plan(l_pad, 512, 1)
+        assert plan.variant == "cluster"
+        assert plan.cluster == (16 if l_pad >= 3840 else 8)
+    for l_pad in _BUCKETS:
+        plan = tc.lattice_plan(l_pad, 512, 1)
+        assert plan.slots == 1 or plan.grid[0] < 512  # fewer blocks where groups share one
+    assert tc.lattice_plan(128, 2, 1).grid == (1, 1)     # the tracker's two candidates
+    assert tc.lattice_plan(3072, 2, 1).grid == (16, 1)   # a cluster a candidate
+
+
+def test_lattice_plan_sized_to_the_longest_feasible():
+    """With one t_valid for every row, the layout holds (t_valid - 1) // 2
+    + 1 state pairs, not L_pad + 1: the champion's L_pad 512 chunk at
+    t_valid 304 (L up to 151) runs as groups of 5 warps, as L_pad 128 does,
+    and the phoneme bucket 3,072 at t_valid 690 as groups of 11; t_valid 2
+    or less leaves one state pair (one warp); an L_pad past every layout
+    fits where t_valid bounds the candidates."""
+    assert tc.longest_feasible(512, None) == 512
+    assert tc.longest_feasible(512, 304) == 151
+    assert tc.longest_feasible(128, 304) == 128
+    assert tc.longest_feasible(512, 0) == tc.longest_feasible(512, 2) == 0
+    assert tc.lattice_plan(512, 512, 1, t_valid=304) == tc.lattice_plan(151, 512, 1)
+    assert tc.lattice_plan(512, 512, 1, t_valid=304).warps == 5
+    assert tc.lattice_plan(3072, 64, 1, t_valid=690) == tc.lattice_plan(344, 64, 1)
+    assert tc.lattice_plan(3072, 64, 1, t_valid=690).variant == "group"
+    assert tc.lattice_plan(512, 64, 1, t_valid=2).variant == "warp"
+    with pytest.raises(ValueError):
+        tc.lattice_plan(8192, 2, 1)
+    plan = tc.lattice_plan(8192, 2, 1, t_valid=8192)
+    assert plan.variant == "cluster" and _holds(plan, 4095)
+
+
+@pytest.mark.parametrize("variant", ["warp", "group", "cluster"])
+def test_lattice_plan_asked_variant_fits_or_raises(variant):
+    """A variant asked for holds every bucket it fits and raises on the
+    rest: one warp holds at most 32 state pairs, one block of 17 warps 544,
+    a 16-CTA cluster 15 warps of 32 a CTA (one pair a thread)."""
+    capacity = {"warp": 32, "group": 544, "cluster": 16 * 15 * 32}[variant]
+    for l_pad in _BUCKETS + [543, 544, 7679, 7680]:
+        try:
+            plan = tc.lattice_plan(l_pad, 64, 2, variant=variant)
+        except ValueError:
+            assert l_pad + 1 > capacity
+            continue
+        assert plan.variant == variant and _fits_the_card(plan) and _holds(plan, l_pad)
+
+
+def test_lattice_plan_raises_where_nothing_fits():
+    """Past 16 CTAs x 15 warps (beside each CTA's halo warp), for an empty
+    L_pad, a grid of more rows than the card takes, an unknown variant and
+    a variant that cannot hold the states; the wrapper raises before it
+    launches (a meta tensor: no card here)."""
+    tc.lattice_plan(7679, 512, 1)
+    for args, kw in (((7680, 512, 1), {}), ((0, 512, 1), {}), ((128, 512, 65536), {}),
+                     ((128, 512, 1), {"variant": "block"}),
+                     ((128, 512, 1), {"variant": "warp"}),
+                     ((9000, 2, 1), {"t_valid": 20000})):
+        with pytest.raises(ValueError):
+            tc.lattice_plan(*args, **kw)
+    lp = torch.empty((64, 70), device="meta")
+    with pytest.raises(ValueError, match="does not fit"):
+        tc.ctc_forward_scores(lp, 1 << 20,
+                              torch.empty((1, 40000), dtype=torch.int32, device="meta"),
+                              torch.empty(1, dtype=torch.int32, device="meta"), 69)
+    with pytest.raises(ValueError, match="does not fit"):
+        tc.ctc_forward_scores_batch(lp[None], torch.tensor([64]),
+                                    torch.empty((1, 40000), dtype=torch.int32, device="meta"),
+                                    torch.empty(1, dtype=torch.int32, device="meta"), 69)
+
+
+def _jax_chunks(t_frames, lengths):
+    """The JAX package's _score_feasible loop (tilawa_tpu/pipeline/rerank.py)
+    over candidates of these sorted lengths: (start, end, L_pad, C_pad)."""
+    out, pos = [], 0
+    while pos < len(lengths):
+        l_pad = jc._next_bucket(max(lengths[pos], 1), jc.TOKEN_BUCKETS)
+        c_pad = jr._cand_bucket_for(t_frames, l_pad)
+        end = pos
+        while end < len(lengths) and end - pos < c_pad and lengths[end] <= l_pad:
+            end += 1
+        out.append((pos, end, l_pad, c_pad))
+        pos = end
+    return out
+
+
+_CHUNK_CASES = [
+    (512, [3] * 40 + [90] * 600 + [200] * 30),          # champion rerank: 3 chunks
+    (1024, [100] * 100 + [300] * 500),                  # T 1024 x L_pad 512: C 256
+    (4096, [60] * 5 + [500] * 300),
+    (8192, [700] * 100 + [1500] * 90 + [2598] * 70),    # the phoneme buckets: C 64
+    (2048, list(range(1, 2000, 7))),
+]
+
+
+@pytest.mark.parametrize("t_frames,lengths", _CHUNK_CASES)
+def test_cpu_route_chunks_equal_the_jax_plan(t_frames, lengths):
+    """Where the plain scorer runs (the CPU route, and chip_smoke's plain
+    replay on the card) the chunks are JAX's: L-bucketed, C capped by the
+    [T, C, L] gather bound (_cand_bucket_for, the same in both packages)."""
+    assert tr._chunks(t_frames, lengths, capped=True) == _jax_chunks(t_frames, lengths)
+    for l_pad in (128, 512, 1024, 3072):
+        assert tr._cand_bucket_for(t_frames, l_pad) == jr._cand_bucket_for(t_frames, l_pad)
+
+
+@pytest.mark.parametrize("t_frames,lengths", _CHUNK_CASES)
+def test_kernel_route_chunks_by_l_bucket_alone(t_frames, lengths):
+    """Where the kernel scores, a chunk is one L bucket of up to 512
+    candidates, padded to the KERNEL_CAND_BUCKETS bucket of its own count:
+    one chunk a bucket while it holds at most 512 candidates (T 1024 /
+    L_pad 512 and the phoneme buckets included), never more chunks than the
+    capped plan, the same candidates in the same order."""
+    chunks = tr._chunks(t_frames, lengths, capped=False)
+    buckets = {}
+    for n in lengths:
+        l_pad = tc._next_bucket(n, tc.TOKEN_BUCKETS)
+        buckets[l_pad] = buckets.get(l_pad, 0) + 1
+    assert [l for _s, _e, l, _c in chunks] == [
+        l for l, n in sorted(buckets.items()) for _ in range(-(-n // 512))]
+    assert all(c == tc._next_bucket(e - s, tr.KERNEL_CAND_BUCKETS) and e - s <= c <= 512
+               for s, e, _l, c in chunks)
+    assert [(s, e) for s, e, _l, _c in chunks][0][0] == 0
+    assert all(e == s2 for (_s, e, _l, _c), (s2, *_r) in zip(chunks, chunks[1:]))
+    assert chunks[-1][1] == len(lengths)
+    assert len(chunks) <= len(tr._chunks(t_frames, lengths, capped=True))
+    if t_frames in (1024, 8192):
+        assert len(chunks) == len(buckets) < len(tr._chunks(t_frames, lengths, capped=True))
+
+
+def test_score_token_lists_chunks_by_route(monkeypatch):
+    """_score_feasible's own choice: a tensor that is not on the CPU (meta
+    here: no card) is chunked by L bucket alone for the kernel, each chunk
+    padded to the bucket of its own count; the same call with plain=True
+    goes to the plain scorer under the gather cap."""
+    calls = []
+
+    def record(name):
+        def scorer(lp, t, tokens, lengths, blank):
+            calls.append((name, tuple(tokens.shape)))
+            return torch.zeros(tokens.shape[0])
+        return scorer
+
+    monkeypatch.setattr(tr, "ctc_forward_scores", record("kernel"))
+    monkeypatch.setattr(tr, "ctc_forward_scores_plain", record("plain"))
+    monkeypatch.setattr(tr, "upload", lambda a, _dev: torch.from_numpy(a))
+    lp = torch.empty((1024, 1025), device="meta")
+    lists = [[1] * 300] * 300 + [[2] * 100] * 10
+    tr.score_token_lists(lp, 1024, lists, blank_id=1024)
+    assert calls == [("kernel", (64, 128)), ("kernel", (512, 512))]
+    calls.clear()
+    tr.score_token_lists(lp, 1024, lists, blank_id=1024, plain=True)
+    assert calls == [("plain", (512, 128)), ("plain", (256, 512)), ("plain", (256, 512))]

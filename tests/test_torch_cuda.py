@@ -26,7 +26,8 @@ log-mel: within the deltas that ±2e-3 noise on the plain log-mel gives the
 same step (chip_smoke.train_vs_plain). The CTC lattice against its plain
 version (the same f32 logaddexp recursion, IEEE expf/log1pf in the same
 order): equal +inf patterns, finite scores within rtol/atol 1e-5, and the
-same best candidate (argmin) a call."""
+same best candidate (argmin) a call; each of its variants (one warp, warp
+group, cluster) also bitwise (`-k lattice`)."""
 
 import dataclasses
 import sys
@@ -550,39 +551,99 @@ def test_context_sweep_rows_equal_single_forwards(champion_cuda):
                                           lp1[0, :t].cpu().numpy().view(np.int32))
 
 
-@pytest.mark.parametrize("label,t,v,c,l_pad,t_valid,lengths", chip_smoke.LATTICE_CASES)
-def test_ctc_lattice_kernel_matches_plain(cuda, label, t, v, c, l_pad, t_valid, lengths):
+# (label, T, V, C, L_pad, t_valid, live lengths) of chip_smoke.LATTICE_CASES,
+# a chunk whose L_pad fits one warp (a TILAWA_TOKEN_BUCKETS rung below 32)
+# and an L_pad past every layout whose t_valid bounds its candidates to
+# what a 16-CTA cluster holds (L up to 4,095), each under every kernel
+# variant that holds its longest feasible candidate
+_WARP_CASE = ("one warp", 512, 1025, 64, 31, 300, (31, 30, 17, 6, 2, 1))
+_LONG_CASE = ("long", 8192, 70, 2, 8192, 8192, (4000, 100))
+
+
+def _variant_fits(case, variant):
+    _label, _t, _v, c, l_pad, t_valid, _lengths = case
+    try:
+        ctc.lattice_plan(l_pad, c, 1, variant=variant, t_valid=t_valid)
+    except ValueError:
+        return False
+    return True
+
+
+_LATTICE_VARIANT_CASES = [
+    (*case, variant) for case in (*chip_smoke.LATTICE_CASES, _WARP_CASE, _LONG_CASE)
+    for variant in ("warp", "group", "cluster") if _variant_fits(case, variant)
+]
+
+
+@pytest.mark.parametrize("label,t,v,c,l_pad,t_valid,lengths,variant", _LATTICE_VARIANT_CASES)
+def test_ctc_lattice_kernel_matches_plain(cuda, label, t, v, c, l_pad, t_valid, lengths,
+                                          variant):
     """The lattice calls the paths make (chip_smoke.LATTICE_CASES: the
-    rerank's chunks, the phoneme shape, the tracker's two candidates)."""
+    rerank's chunks, sparse and all live, the phoneme shapes, the tracker's
+    two candidates, the chain floor) under each variant (one warp, warp
+    group, cluster) that holds the longest feasible candidate: one launch,
+    scores bitwise the plain version's."""
     lp, tokens, lens = chip_smoke.lattice_case(torch, np, t, v, c, l_pad, lengths,
                                                t_valid + l_pad)
+    plan = ctc.lattice_plan(l_pad, c, 1, variant=variant, t_valid=t_valid)
     kernels.reset_launches()
-    out = ctc.ctc_forward_scores(lp, t_valid, tokens, lens, v - 1)
+    out = ctc._launch("test", lp[None], t_valid, tokens, lens, v - 1, plan)[0]
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["ctc_lattice"] == 1
     ref = ctc.ctc_forward_scores_plain(lp, t_valid, tokens, lens, v - 1)
     assert out.shape == (c,) and out.dtype == torch.float32
     chip_smoke.lattice_gate(torch, label, out, ref)
+    assert torch.equal(chip_smoke.bits(torch, out), chip_smoke.bits(torch, ref))
     live = (2 * lens + 1 <= t_valid) & (lens > 0)
     assert torch.equal(torch.isfinite(out), live)
+    if variant == ctc.lattice_plan(l_pad, c, 1, t_valid=t_valid).variant:   # the wrapper's
+        assert torch.equal(out, ctc.ctc_forward_scores(lp, t_valid, tokens, lens, v - 1))
 
 
-def test_ctc_lattice_batch_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("variant", ["group", "cluster"])
+def test_ctc_lattice_batch_kernel_matches_plain(cuda, variant):
     """B = 4 rows with four t_valid (one launch), each row also against the
-    single form."""
+    single form, under the group and the cluster variant: bitwise."""
     lp, tokens, lens = chip_smoke.lattice_case(torch, np, 512, 1025, 64, 128,
                                                (128, 90, 33, 6, 1), 4)
     rows = torch.stack([lp, lp.flip(0), lp.roll(7, 0), lp * 1.5]).log_softmax(-1)
     t_valid = torch.tensor([512, 257, 100, 1], dtype=torch.int32, device=cuda)
+    plan = ctc.lattice_plan(128, 64, 4, variant=variant)
     kernels.reset_launches()
-    out = ctc.ctc_forward_scores_batch(rows, t_valid, tokens, lens, 1024)
+    out = ctc._launch("test", rows, t_valid, tokens, lens, 1024, plan)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["ctc_lattice"] == 1
     assert out.shape == (4, 64)
-    chip_smoke.lattice_gate(torch, "batch", out,
-                            ctc.ctc_forward_scores_batch_plain(rows, t_valid, tokens, lens, 1024))
+    ref = ctc.ctc_forward_scores_batch_plain(rows, t_valid, tokens, lens, 1024)
+    chip_smoke.lattice_gate(torch, "batch", out, ref)
+    assert torch.equal(chip_smoke.bits(torch, out), chip_smoke.bits(torch, ref))
     for b, tv in enumerate((512, 257, 100, 1)):
         assert torch.equal(out[b], ctc.ctc_forward_scores(rows[b], tv, tokens, lens, 1024))
+
+
+def test_ctc_lattice_log1p_is_cudas_for_every_float(cuda):
+    """The kernel's branch-free log1pf (log1pf_flat in csrc/ctc_lattice.cu)
+    against CUDA's log1pf on all 2^32 floats: no bit differs, so the
+    kernel's logaddexp is torch's."""
+    assert chip_smoke.lattice_log1p_mismatches(torch, kernels) == 0
+
+
+def test_ctc_lattice_raises_where_no_variant_fits(cuda):
+    """L_pad past every layout (a cluster of 16 CTAs of 512 threads, one
+    state pair a thread) at a t_valid that lets its candidates be feasible
+    raises in the wrapper, and so does a plan the kernel cannot hold (one
+    warp for candidates up to L 49); neither launches."""
+    lp = torch.zeros((64, 70), device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="does not fit"):
+        ctc.ctc_forward_scores(lp, 1 << 20, torch.zeros((1, 40000), dtype=torch.int32,
+                                                        device=cuda),
+                               torch.ones(1, dtype=torch.int32, device=cuda), 69)
+    small = ctc.lattice_plan(31, 1, 1, variant="warp")
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ctc._launch("test", lp[None], 100, torch.zeros((1, 128), dtype=torch.int32, device=cuda),
+                    torch.ones(1, dtype=torch.int32, device=cuda), 69, small)
+    assert kernels.LAUNCHES["ctc_lattice"] == 0
 
 
 def test_ctc_lattice_makes_no_host_sync(cuda):
@@ -616,10 +677,7 @@ def test_rerank_scores_through_the_kernel(cuda):
     kernels.reset_launches()
     got = rerank.score_token_lists(lp, 450, lists, blank_id=1024)
     assert kernels.LAUNCHES["ctc_lattice"] == 2     # the L_pad 128 and 512 chunks
-    real = rerank.ctc_forward_scores
-    rerank.ctc_forward_scores = ctc.ctc_forward_scores_plain
-    try:
-        ref = rerank.score_token_lists(lp, 450, lists, blank_id=1024)
-    finally:
-        rerank.ctc_forward_scores = real
+    ref = rerank.score_token_lists(lp, 450, lists, blank_id=1024, plain=True)
+    assert kernels.LAUNCHES["ctc_lattice"] == 2
     chip_smoke.lattice_gate(torch, "score_token_lists", got, ref)
+    np.testing.assert_array_equal(got, ref)

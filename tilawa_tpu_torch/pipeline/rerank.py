@@ -20,9 +20,11 @@ from tilawa_tpu_torch.data.assets import BLANK_ID
 from tilawa_tpu_torch.data.token_store import TokenStore
 from tilawa_tpu_torch.device import upload
 from tilawa_tpu_torch.ops.ctc import (
+    CAND_BUCKETS,
     TOKEN_BUCKETS,
     _next_bucket,
     ctc_forward_scores,
+    ctc_forward_scores_plain,
     pad_candidates,
     pad_frames,
 )
@@ -36,10 +38,13 @@ def span_len(c: dict) -> int:
 
 
 # Bound on the [T, C, L] float32 emission-gather buffer of one scorer call,
-# as in the JAX package. Only the plain CPU scorer builds that buffer; the
-# CUDA kernel reads emissions from log_probs, so on the card the bound only
-# sets how many chunks (launches) a call takes.
+# as in the JAX package. Only the plain scorer builds that buffer, so the cap
+# holds only where it runs; the CUDA kernel reads emissions from log_probs,
+# and there a chunk is a whole L bucket of up to 512 candidates, padded to
+# the next of KERNEL_CAND_BUCKETS over its own count (the kernel compiles
+# nothing per shape, and a smaller block uploads less).
 _MAX_GATHER_BYTES = int(os.getenv("TILAWA_RERANK_GATHER_BYTES", str(768 << 20)))
+KERNEL_CAND_BUCKETS = (64, 128, 256, 512)
 
 
 def _cand_bucket_for(t_frames: int, l_pad: int) -> int:
@@ -52,38 +57,49 @@ def _cand_bucket_for(t_frames: int, l_pad: int) -> int:
     return c
 
 
+def _chunks(t_frames: int, lengths: list[int], capped: bool) -> list[tuple[int, int, int, int]]:
+    """The scorer chunks of candidates of these token lengths (ascending):
+    (start, end, L_pad, C_pad) each, one L bucket a chunk. `capped` (the
+    plain scorer) bounds C_pad by _cand_bucket_for, as the JAX package
+    does; else a chunk holds up to CAND_BUCKETS' 512 candidates and C_pad
+    is the KERNEL_CAND_BUCKETS bucket of its count."""
+    out, pos = [], 0
+    while pos < len(lengths):
+        l_pad = _next_bucket(max(lengths[pos], 1), TOKEN_BUCKETS)
+        cap = _cand_bucket_for(t_frames, l_pad) if capped else CAND_BUCKETS[-1]
+        end = pos
+        while end < len(lengths) and end - pos < cap and lengths[end] <= l_pad:
+            end += 1
+        c_pad = cap if capped else _next_bucket(end - pos, KERNEL_CAND_BUCKETS)
+        out.append((pos, end, l_pad, c_pad))
+        pos = end
+    return out
+
+
 def _score_feasible(
     lp_dev: torch.Tensor, t: int, token_lists: list[list[int]],
-    order: list[int], blank_id: int,
+    order: list[int], blank_id: int, plain: bool,
 ) -> np.ndarray:
-    """Score candidates (already sorted by token length) in L-bucketed,
-    memory-bounded chunks; returns scores aligned with `order`."""
+    """Score candidates (already sorted by token length) in L-bucketed
+    chunks, bounded by the gather cap where the plain scorer runs (`plain`,
+    or a CPU tensor, which ctc_forward_scores scores plainly); returns
+    scores aligned with `order`."""
+    scorer = ctc_forward_scores_plain if plain else ctc_forward_scores
+    capped = plain or lp_dev.device.type == "cpu"
     out = np.full(len(order), np.inf, dtype=np.float64)
-    t_frames = lp_dev.shape[0]
-    pos = 0
-    while pos < len(order):
-        l_pad = _next_bucket(
-            max(len(token_lists[order[pos]]), 1), TOKEN_BUCKETS
-        )
-        c_pad = _cand_bucket_for(t_frames, l_pad)
-        end = pos
-        while (
-            end < len(order)
-            and end - pos < c_pad
-            and len(token_lists[order[end]]) <= l_pad
-        ):
-            end += 1
+    lengths = [len(token_lists[i]) for i in order]
+    for pos, end, l_pad, c_pad in _chunks(lp_dev.shape[0], lengths, capped):
         chunk = order[pos:end]
-        tokens, lengths = pad_candidates(
+        tokens, lengths_pad = pad_candidates(
             [token_lists[i] for i in chunk],
             token_buckets=(l_pad,),
             cand_buckets=(c_pad,),
         )
-        scores = ctc_forward_scores(
-            lp_dev, t, upload(tokens, lp_dev.device), upload(lengths, lp_dev.device), blank_id,
+        scores = scorer(
+            lp_dev, t, upload(tokens, lp_dev.device), upload(lengths_pad, lp_dev.device),
+            blank_id,
         ).cpu().numpy()
         out[pos:end] = scores[: len(chunk)]
-        pos = end
     return out
 
 
@@ -92,11 +108,14 @@ def score_token_lists(
     t_valid: int,
     token_lists: list[list[int]],
     blank_id: int = BLANK_ID,
+    *,
+    plain: bool = False,
 ) -> np.ndarray:
     """Length-normalized CTC forced-alignment NLL per token list; +inf for
     empty/infeasible (2L+1 > T) entries. A torch tensor is scored where it
     lies (the runtime's frame-bucket padded log-probs); a numpy array is
-    padded to a frame bucket and scored on the CPU."""
+    padded to a frame bucket and scored on the CPU. `plain` scores with the
+    plain lattice on any device (the card's reference for the kernel)."""
     out = np.full(len(token_lists), np.inf, dtype=np.float64)
     feasible = [
         i for i, ids in enumerate(token_lists)
@@ -111,7 +130,7 @@ def score_token_lists(
                 np.asarray(log_probs[:t_valid], dtype=np.float32)
             )
             lp_dev = torch.from_numpy(lp_padded)
-        scores = _score_feasible(lp_dev, t, token_lists, feasible, blank_id)
+        scores = _score_feasible(lp_dev, t, token_lists, feasible, blank_id, plain)
         for j, i in enumerate(feasible):
             out[i] = scores[j]
     return out
