@@ -8,9 +8,10 @@
     python3 chip_smoke.py --layouts 2x2,1x4,4x1
                                  # the multi-device phase alone on four cards
     python3 chip_smoke.py --lattice
-                                 # the lattice kernel alone: every shape under
-                                 # each variant that fits, each bitwise its
-                                 # plain version, timed
+                                 # the CTC kernels alone: the lattice at every
+                                 # shape under each variant that fits, each
+                                 # bitwise its plain version, and the training
+                                 # loss at every training bucket, timed
     python3 chip_smoke.py --lattice-compare _parent
                                  # this checkout's lattice kernel beside the
                                  # port in _parent (e.g. `git archive` of the
@@ -21,7 +22,7 @@ Phases (each prints its elapsed seconds; any failure exits non-zero
 without the final line):
 
   1. device      card name, count, nvidia-smi name and power limit
-  2. build       nvcc the four hand-written kernels (in parallel) for
+  2. build       nvcc the five hand-written kernels (in parallel) for
                  sm_90a; ptxas registers / shared memory / spills
   3. kernels     each kernel against its plain PyTorch version on the card
                  at every shape the paths launch: the int4 and int8 layers
@@ -43,7 +44,13 @@ without the final line):
                  (equal +inf patterns, 1e-5, equal argmin); timings of
                  the kernel, the plain version and a one-call library
                  yardstick, the variant (ops/ctc.py lattice_plan) each shape
-                 ran and its us a frame
+                 ran and its us a frame; the training CTC loss (forward and
+                 backward) at every training bucket's B x T with v1's label
+                 lengths, V 1,025 and the phoneme batches' V 70
+                 (CTC_LOSS_CASES): each row's loss and gradient against the
+                 plain version (CTC_LOSS_TOL, CTC_GRAD_TOL), two runs
+                 bitwise equal, kernel, plain and F.ctc_loss ms, the bound
+                 and the chain floor
   4. main path   champion-int4 Recognizer(tta=True).predict over wav clips
                  of benchmark/test_corpus (each must match the manifest),
                  plus the >25 s transcribe fallback; launch counters are
@@ -111,7 +118,8 @@ without the final line):
                  synchronizing calls a step (set_sync_debug_mode "warn");
                  finite losses, nothing moved by step 0 (lr 0), parameters
                  moved by step 1, frozen BatchNorm stats, one log-mel
-                 launch a step, no int4, no sync from the port's code
+                 and two ctc_loss launches a step, no int4, no sync from
+                 the port's code or from any CTC loss
   16. train vs   one step on a fixed v1 batch (dropout 0, no SpecAugment)
       plain      with the log-mel kernel and with the plain log-mel, f32 and
                  bf16 compute: |Δ loss| and the largest per-leaf
@@ -121,8 +129,8 @@ without the final line):
   17. distill    train_distill: student the dequantized champion, teacher
                  champion-int4 on the int4 kernel, DISTILL_STEPS steps over
                  distill_batches(v1): KL, auxiliary CTC, step ms, syncs as
-                 in "train"; 189 int4 launches a step (the teacher) and 2
-                 log-mel; before it, the KL of teacher and student on the
+                 in "train"; 189 int4 launches a step (the teacher), 2
+                 log-mel and 2 ctc_loss; before it, the KL of teacher and student on the
                  first batch's full clips, within SAME_WEIGHTS_KL
   18. export     export_bundle of the train phase's checkpoint as int4:
                  verify_bundle, the server's sha256 check, and
@@ -156,7 +164,8 @@ without the final line):
   22. phoneme    train.phoneme at full width from the dequantized
       train      champion-int4 with a fresh 70-class head, PHONEME_TRAIN_STEPS
                  steps in a temporary directory: finite losses, one log-mel
-                 launch a step, the sync census of "train"; the head is
+                 and two ctc_loss launches a step, the sync census of
+                 "train"; the head is
                  [512, 70] lecun normal, bias 0; the checkpoint loads in
                  EncoderRuntime and gives [T, 70] log-probs
   23. multi-     the sharded step (tilawa_tpu_torch/parallel/) in a child
@@ -171,7 +180,9 @@ without the final line):
                  floor (0: bitwise); the same in f32, its distance from an
                  f64 run within MD_FLOOR_FACTOR times the plain f32 run's,
                  its parameters equal to a replay of its own gradients; one
-                 log-mel and no quantized launch a step; each path's step ms
+                 log-mel, two ctc_loss and no quantized launch a step, no
+                 synchronizing call from the CTC loss in a sharded bf16
+                 step (the census of "train"); each path's step ms
                  (CUDA events and host clock, in turns); the sharded forward
                  + CTC rerank of 6 transcripts (one batch lattice launch)
                  equal to the unsharded model's scores. Then, on the
@@ -206,9 +217,10 @@ line and the ok line.
 The last lines: the wall, one JSON object {"train": {...}} (step ms, audio-s/s,
 peak bytes, training MFU, distill step ms, the kernel-vs-plain deltas, the
 multi-device phase's numbers, the card and its power limit), nvidia-smi's name and power limit, one JSON
-object with every kernel's numbers (`launches`: the eval phase's run;
+object with every kernel's numbers (`launches`: the eval phase's run,
+the train phase's for ctc_loss;
 `train_launches`: the train phase's log-mel and the distill teacher's
-int4; `path_launches`: one entry per path of phases 11, 19, 20, 22 and 23; the
+int4; `path_launches`: one entry per path of phases 11, 17, 19, 20, 22 and 23; the
 int8 entry's `phoneme_head`: the (512, 70) head's times per M; the lattice
 entry's `paths`: kernel and plain per-call times of each path), and
 {"ok": true, "device": {...}}. A line before them says that the bundle
@@ -384,6 +396,38 @@ LATTICE_CASES = (
     ("phoneme dense", 8192, 70, 64, 3072, 5197, tuple(2561 + 37 * r // 63 for r in range(64))),
 )
 LATTICE_BATCH_T_VALID = (512, 257, 100, 1)   # the batch form's B = 4 rows
+CTC_LOSS_LAUNCHES_PER_STEP = 2   # the training loss: one launch forward, one backward
+CTC_LOSS_TOL = 1e-5   # the training loss's kernels against their plain version: each row's
+CTC_GRAD_TOL = 1e-4   # loss relative, each row's gradient max|Δ| over its max|g| (the same f32
+                      # recursion, IEEE expf/log1pf in the same order, sums of the softmax
+                      # and of the posteriors in other orders); the CPU tests hold the plain
+                      # version to jax.value_and_grad of optax.ctc_loss at the same bounds
+# (label, B, T, V, L_pad, L_max) of the training losses: every train.data.BUCKETS batch
+# (B x T encoder frames, 12.5 a second) with labels as long as v1's bucketed batches give
+# them (bucketed_corpus_batches: L_pad the bucket's token pad, the longest label rounded up
+# to 16), V 1,025; no v1 clip falls in the 96 s and 160 s buckets, so theirs take the 64 s
+# bucket's density, 102 labels in 800 frames. Then train.phoneme's batches
+# (phoneme_corpus_batches over v1, V 70: its pads and longest rows; 160 s at the 64 s
+# bucket's density, 343 in 800). Read from v1 with those generators over 400 batches.
+CTC_LOSS_CASES = (
+    ("text 8 s", 16, 100, 1025, 32, 19),
+    ("text 12 s", 12, 150, 1025, 48, 41),
+    ("text 16 s", 8, 200, 1025, 32, 25),
+    ("text 24 s", 6, 300, 1025, 48, 38),
+    ("text 32 s", 4, 400, 1025, 48, 42),
+    ("text 48 s", 3, 600, 1025, 48, 39),
+    ("text 64 s", 2, 800, 1025, 112, 102),
+    ("text 96 s", 1, 1200, 1025, 160, 153),
+    ("text 160 s", 1, 2000, 1025, 256, 255),
+    ("phoneme 8 s", 16, 100, 70, 64, 59),
+    ("phoneme 12 s", 12, 150, 70, 160, 149),
+    ("phoneme 16 s", 8, 200, 70, 80, 71),
+    ("phoneme 24 s", 6, 300, 70, 160, 154),
+    ("phoneme 32 s", 4, 400, 70, 192, 180),
+    ("phoneme 48 s", 3, 600, 70, 176, 175),
+    ("phoneme 64 s", 2, 800, 70, 352, 343),
+    ("phoneme 160 s", 1, 2000, 70, 864, 858),
+)
 
 
 def mel_shapes() -> tuple[tuple[int, int], ...]:
@@ -943,6 +987,12 @@ def lattice_log1p_mismatches(torch, kernels) -> int:
     return int(bad.item())
 
 
+def lattice_chain_us(entry: dict) -> float:
+    """The lattice's us a frame at its "chain floor" shape (one candidate of
+    one token) in this run: the card's floor for one dependent frame."""
+    return next(r["us_per_frame"] for r in entry["shapes"] if r["label"] == "chain floor")
+
+
 def check_lattice(torch, np, ctc, flush) -> dict:
     """The CTC lattice kernel at every LATTICE_CASES shape and the batch
     form at B = 4 with four t_valid, against its plain version (lattice_gate),
@@ -1040,6 +1090,156 @@ def check_lattice(torch, np, ctc, flush) -> dict:
         **{k: rows["rerank chunk"][k] for k in keys},
         "t_valid": rows["rerank chunk"]["t_valid"][0],
         "variants": {label: r["variant"] for label, r in rows.items()},
+        "shapes": list(rows.values()),
+    }
+
+
+def ctc_loss_case(torch, np, b: int, t: int, v: int, l_pad: int, l_max: int, seed: int,
+                  device=DEVICE) -> tuple:
+    """A training loss's inputs on the card: x = log_softmax of N(0, 2²)
+    logits [B, T, V] f32 (a head's output); row r's labels l_max - r·l_max
+    // 2B tokens long (at least 1; never the blank V-1; every other row
+    with a run of one token), zero-padded to l_pad; enc_len T - r·T // 3B,
+    but with B >= 2 the last row 2 frames short of its labels (infeasible:
+    optax's finite loss). Returns (x, enc_len, tokens, token_lens) int32 on
+    the card and the blank."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((b, t, v)).astype(np.float32) * 2
+    tokens = np.zeros((b, l_pad), np.int32)
+    lens = np.zeros(b, np.int32)
+    enc = np.zeros(b, np.int32)
+    for r in range(b):
+        n = max(1, l_max - r * l_max // (2 * b))
+        ids = rng.integers(0, v - 1, size=n)
+        if r % 2 == 0 and n > 4:
+            ids[1:4] = ids[0]
+        tokens[r, :n], lens[r] = ids, n
+        need = n + int(np.sum(ids[1:] == ids[:-1]))
+        enc[r] = max(1, need - 2) if b >= 2 and r == b - 1 else t - r * t // (3 * b)
+    x = torch.from_numpy(logits).to(device).log_softmax(-1)
+    return (x, *(torch.from_numpy(a).to(device) for a in (enc, tokens, lens)), v - 1)
+
+
+def ctc_loss_gate(torch, what: str, loss, grad, ref_loss, ref_grad) -> tuple[float, float]:
+    """The loss kernels' rows and gradient against the plain version's:
+    finite losses, each row's loss within CTC_LOSS_TOL (relative), each
+    row's max|Δ gradient| within CTC_GRAD_TOL of its plain max|g| (0 where
+    that is 0). Returns the worst loss and gradient ratios."""
+    loss, ref_loss = loss.double(), ref_loss.double()
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"{what}: a loss is not finite")
+    rel = float(((loss - ref_loss).abs() / ref_loss.abs()).max())
+    b = grad.shape[0]
+    top = ref_grad.reshape(b, -1).abs().amax(1).double()
+    err = (grad - ref_grad).reshape(b, -1).abs().amax(1).double()
+    # a row with no live frame has no gradient: there any difference fails
+    ratio = float(torch.where(top > 0, err / top.clamp(min=1e-300),
+                              torch.where(err > 0, torch.inf, 0.0)).max())
+    if not (rel <= CTC_LOSS_TOL and ratio <= CTC_GRAD_TOL):
+        raise AssertionError(f"{what}: loss rel {rel:.3g} (bound {CTC_LOSS_TOL}), gradient "
+                             f"max|Δ|/max|g| {ratio:.3g} (bound {CTC_GRAD_TOL})")
+    return rel, ratio
+
+
+def ctc_loss_bound_ms(b: int, t: int, v: int, enc, lens) -> tuple[float, str, int]:
+    """What a forward and backward of the loss need for these rows. Bytes
+    (over HBM_BYTES_S): x's live frames read by each (forward and backward
+    are two calls), the gradient [B, T, V] written once, lengths and tokens
+    negligible. Work (over MUFU_OPS_S): per live frame V + 1 (the
+    normalizer's exps and log) and V (the gradient's softmax); per live
+    frame and label (L a row) the recursion's 3 logaddexps (emit, pp and
+    phi), an expf and a log1pf each forward and two weight exps each
+    back, 12 transcendentals (what the function needs: the kernel's
+    recomputation of pp in the backward is not counted). Returns (ms,
+    what binds, transcendentals)."""
+    live = [min(max(int(e), 0), t) for e in enc]
+    frames = sum(live)
+    nbytes = 2 * frames * v * 4 + b * t * v * 4
+    ops = frames * (2 * v + 1) + sum(tr * max(int(n), 0) * 12 for tr, n in zip(live, lens))
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / MUFU_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), ops
+
+
+def check_ctc_loss(torch, np, ctc, flush, chain_us: float) -> dict:
+    """The training loss's kernels at every CTC_LOSS_CASES shape: loss and
+    gradient (upstream 1/B a row, the mean) through ops/ctc.py ctc_loss
+    against ctc_loss_plain and ctc_loss_grad_plain (ctc_loss_gate), two
+    kernel runs bitwise equal; forward plus backward timed for the kernels
+    (their two launches), the plain versions and F.ctc_loss (reduction
+    "none", its backward; the library's yardstick, inf on the infeasible
+    row, zeroed); the bound and, beside it, the chain floor: twice (forward
+    and backward) the row's frames at `chain_us` a frame, the lattice's
+    own one-token chain in this run. The JSON entry carries the 8 s text
+    bucket, every shape under `shapes`."""
+    import torch.nn.functional as F
+
+    rows = {}
+    for i, (label, b, t, v, l_pad, l_max) in enumerate(CTC_LOSS_CASES):
+        x, enc, tokens, lens, blank = ctc_loss_case(torch, np, b, t, v, l_pad, l_max,
+                                                    SEED + 40 + i)
+        weight = torch.full((b,), 1.0 / b, device=DEVICE)
+
+        def kernel():
+            loss, work = ctc._loss_forward_kernel(x, enc, tokens, lens, blank)
+            return loss, ctc._loss_backward_kernel(x, enc, tokens, lens, blank, weight, *work)
+
+        def plain():
+            return (ctc.ctc_loss_plain(x, enc, tokens, lens, blank),
+                    ctc.ctc_loss_grad_plain(x, enc, tokens, lens, blank, weight))
+
+        xg = x.detach().requires_grad_()
+        loss = ctc.ctc_loss(xg, enc, tokens, lens, blank)
+        (grad,) = torch.autograd.grad(loss, xg, weight)
+        loss = loss.detach()
+        again = kernel()
+        ref_loss, ref_grad = plain()
+        torch.cuda.synchronize()
+        rel, ratio = ctc_loss_gate(torch, f"ctc loss {label}", loss, grad, ref_loss, ref_grad)
+        if not (torch.equal(bits(torch, loss), bits(torch, again[0]))
+                and torch.equal(bits(torch, grad), bits(torch, again[1]))):
+            raise AssertionError(f"ctc loss {label}: two kernel runs differ")
+        err = float((grad - ref_grad).abs().max())
+        lib_x = x.detach().requires_grad_()
+        targets, in_lens, tgt_lens = tokens.long(), enc.long(), lens.long()
+
+        def library():
+            out = F.ctc_loss(lib_x.transpose(0, 1), targets, in_lens, tgt_lens, blank=blank,
+                             reduction="none", zero_infinity=True)
+            out.backward(weight)
+
+        ms = time_cuda(torch, kernel, flush)
+        slow = t * b > 2000
+        plain_ms = time_cuda(torch, plain, flush, reps=1 if slow else 3, warmup=0 if slow else 1)
+        lib_ms = time_cuda(torch, library, flush)
+        bound, by, ops = ctc_loss_bound_ms(b, t, v, enc.tolist(), lens.tolist())
+        t_max = int(enc.clamp(max=t).max())
+        floor_ms = 2 * t_max * chain_us / 1e3
+        need = [int(n) + int((r[1:n] == r[:n - 1]).sum())
+                for r, n in zip(tokens.cpu().numpy(), lens.tolist())]
+        infeasible = sum(nd > e for nd, e in zip(need, enc.tolist()))
+        threads = (l_pad + 1 + 31) // 32 * 32
+        print(f"  ctc loss {label:16s} B={b} T={t} V={v} L_pad={l_pad} L_max={l_max} "
+              f"({infeasible} infeasible row(s); a block of {threads} threads a row): "
+              f"loss rel {rel:.3g}, max|Δg|/max|g| {ratio:.3g}, bitwise run to run; "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  F.ctc_loss {lib_ms:.4f} ms  "
+              f"bound {bound:.5f} ms ({by}; {ops} transcendentals)  chain floor "
+              f"{floor_ms:.4f} ms (2 x {t_max} frames x {chain_us:.4f} us)", flush=True)
+        rows[label] = {"label": label, "b": b, "t": t, "v": v, "l_pad": l_pad, "l_max": l_max,
+                       "infeasible_rows": infeasible, "threads": threads,
+                       "loss_rel_err": rel, "grad_ratio": ratio, "max_abs_err": err,
+                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound, "bound_by": by, "transcendentals": ops,
+                       "chain_floor_ms": floor_ms}
+        del x, xg, grad, ref_grad, again, lib_x
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "chain_floor_ms")
+    head = rows[CTC_LOSS_CASES[0][0]]
+    return {
+        "name": "ctc_loss", "route": "cuda", "source": "tilawa_tpu_torch/csrc/ctc_loss.cu",
+        "replaces": "tilawa_tpu/train/train.py:53",
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "loss_rel_err": max(r["loss_rel_err"] for r in rows.values()),
+        "grad_ratio": max(r["grad_ratio"] for r in rows.values()),
+        **{k: head[k] for k in keys}, "shape": CTC_LOSS_CASES[0][0],
         "shapes": list(rows.values()),
     }
 
@@ -1912,9 +2112,11 @@ def train_phase(torch, np, kernels, ckpt_dir: Path) -> dict:
         raise AssertionError("step 1 moved no parameter")
     if bn_moved:
         raise AssertionError(f"frozen BatchNorm stats moved: {bn_moved[:5]}")
-    bad = [s["i"] for s in steps if s["launches"]["log_mel"] != 1 or s["launches"]["int4_matmul"]]
+    bad = [s["i"] for s in steps if s["launches"]["log_mel"] != 1 or s["launches"]["int4_matmul"]
+           or s["launches"]["ctc_loss"] != CTC_LOSS_LAUNCHES_PER_STEP]
     if bad:
-        raise AssertionError(f"steps {bad}: want 1 log-mel and 0 int4 launches a step")
+        raise AssertionError(f"steps {bad}: want 1 log-mel, {CTC_LOSS_LAUNCHES_PER_STEP} "
+                             "ctc_loss and 0 int4 launches a step")
     timed = steps[1:]
     med = sorted(timed, key=lambda s: s["ms"])[len(timed) // 2]
     return {"checkpoint": ckpt_dir / f"step_{TRAIN_STEPS:06d}", "peak_bytes": peak,
@@ -1926,7 +2128,8 @@ def train_phase(torch, np, kernels, ckpt_dir: Path) -> dict:
             "mfu": sum(3 * s["shape"][0] * forward_flops(cfg, s["shape"][1] / 16000)
                        for s in timed) / (sum(s["ms"] for s in timed) / 1e3) / BF16_FLOPS_S,
             "sync_sites": syncs,
-            "log_mel_launches": sum(s["launches"]["log_mel"] for s in steps)}
+            "log_mel_launches": sum(s["launches"]["log_mel"] for s in steps),
+            "ctc_loss_launches": sum(s["launches"]["ctc_loss"] for s in steps)}
 
 
 def _step_loss(torch, model, batch, generator):
@@ -2010,8 +2213,8 @@ def train_vs_plain(torch, np) -> dict:
     in f32, where the step is smooth in its features; in bf16 any change of
     the features flips roundings through the 17 blocks, so kernel and noise
     deltas come out alike whatever the size of the change: printed, not
-    gated. The plain step run twice gives the floor (CTC's backward on CUDA
-    may use atomics). The noisy run's features come from hooks on its own
+    gated. The plain step run twice gives the floor (0 where the step is
+    bitwise repeatable). The noisy run's features come from hooks on its own
     model (noisy_features): the plain log-mel of its audio plus the noise,
     then the frontend's normalization. Then one bf16 kernel step under
     torch.profiler."""
@@ -2153,10 +2356,12 @@ def distill_phase(torch, np, kernels) -> dict:
               f"aux CTC {ctc:.4f}, loss {loss:.4f}, {s['ms']:.2f} ms, launches "
               f"{s['launches']}", flush=True)
     bad = [s["i"] for s in steps if s["launches"]["int4_matmul"] != INT4_LAUNCHES_PER_FORWARD
-           or s["launches"]["log_mel"] != 2]
+           or s["launches"]["log_mel"] != 2
+           or s["launches"]["ctc_loss"] != CTC_LOSS_LAUNCHES_PER_STEP]
     if bad:
         raise AssertionError(f"steps {bad}: want {INT4_LAUNCHES_PER_FORWARD} int4 launches "
-                             "(the teacher) and 2 log-mel launches a step")
+                             f"(the teacher), 2 log-mel and {CTC_LOSS_LAUNCHES_PER_STEP} ctc_loss "
+                             "launches a step")
     if not all(np.isfinite([float(v) for v in s["out"]]).all() for s in steps):
         raise AssertionError("a distillation loss is not finite")
     syncs = check_syncs(steps, seen, 2, "distill")
@@ -2165,7 +2370,8 @@ def distill_phase(torch, np, kernels) -> dict:
             "step_ms_all": [s["ms"] for s in timed], "sync_sites": syncs,
             "first_kl": float(steps[0]["out"][1]), "first_kl_full_rows": full_kl,
             "int4_launches": sum(s["launches"]["int4_matmul"] for s in steps),
-            "log_mel_launches": sum(s["launches"]["log_mel"] for s in steps)}
+            "log_mel_launches": sum(s["launches"]["log_mel"] for s in steps),
+            "ctc_loss_launches": sum(s["launches"]["ctc_loss"] for s in steps)}
 
 
 def export_phase(torch, kernels, checkpoint: Path, out: Path, manifest: dict) -> None:
@@ -2684,9 +2890,11 @@ def phoneme_train_phase(torch, np, kernels, init: Path, ckpt_dir: Path, steps: i
     if not all(np.isfinite(float(st["loss"])) for st in steps_log):
         raise AssertionError("a phoneme training loss is not finite")
     bad = [st["i"] for st in steps_log if st["launches"] != {
-        "int4_matmul": 0, "log_mel": 1, "int8_matmul": 0, "ctc_lattice": 0}]
+        "int4_matmul": 0, "log_mel": 1, "int8_matmul": 0, "ctc_lattice": 0,
+        "ctc_loss": CTC_LOSS_LAUNCHES_PER_STEP}]
     if bad:
-        raise AssertionError(f"steps {bad}: want 1 log-mel and no quantized launch a step")
+        raise AssertionError(f"steps {bad}: want 1 log-mel, {CTC_LOSS_LAUNCHES_PER_STEP} "
+                             "ctc_loss and no quantized launch a step")
 
     cfg0, start_vars = load_variables(ckpt_dir / "init")
     head = start_vars["params"]["ctc_head"]
@@ -2713,7 +2921,8 @@ def phoneme_train_phase(torch, np, kernels, init: Path, ckpt_dir: Path, steps: i
     timed = steps_log[1:]
     return {"step_ms": sorted(st["ms"] for st in timed)[len(timed) // 2],
             "losses": [float(st["loss"]) for st in steps_log], "sync_sites": syncs,
-            "log_mel_launches": sum(st["launches"]["log_mel"] for st in steps_log)}
+            "log_mel_launches": sum(st["launches"]["log_mel"] for st in steps_log),
+            "ctc_loss_launches": sum(st["launches"]["ctc_loss"] for st in steps_log)}
 
 
 def harnesses(torch, np, kernels, runtime, validate_streaming, load_audio, manifest,
@@ -2918,7 +3127,9 @@ def multi_device_rank(rank: int, world_size: int, dev, layouts) -> dict:
     def full(t):
         return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach().clone()
 
-    def run_steps(cfg, rows, mesh=None) -> dict:
+    def run_steps(cfg, rows, mesh=None, census=False) -> dict:
+        """MD_STEPS steps; with `census`, the steps (each ending in its
+        loss's read) under sync_census, their sync sites per step."""
         model = load_into(FastConformerCTC(cfg), variables).to(dev)
         if mesh is not None:
             shard_variables(model, mesh)
@@ -2932,14 +3143,17 @@ def multi_device_rank(rank: int, world_size: int, dev, layouts) -> dict:
             update()
 
         opt.step = step
-        state, losses, launches = TrainState(model, opt), [], []
-        for i in range(MD_STEPS):
-            kernels.reset_launches()
-            losses.append(float(step_fn(state, rows, step_generator(SEED, i, dev))))
-            launches.append(dict(kernels.LAUNCHES))
+        state, losses, launches, syncs = TrainState(model, opt), [], [], []
+        with sync_census(torch) if census else contextlib.nullcontext([]) as seen:
+            for i in range(MD_STEPS):
+                kernels.reset_launches()
+                first = len(seen)
+                losses.append(float(step_fn(state, rows, step_generator(SEED, i, dev))))
+                launches.append(dict(kernels.LAUNCHES))
+                syncs.append(sync_sites(seen, first, len(seen)))
         opt.step = update
         return {"state": state, "step_fn": step_fn, "losses": losses, "grads": grads,
-                "launches": launches,
+                "launches": launches, "sync_sites": syncs,
                 "full": {k: full(v) for k, v in model.state_dict().items()}}
 
     def scores(run, cfg) -> dict:
@@ -3037,13 +3251,14 @@ def multi_device_rank(rank: int, world_size: int, dev, layouts) -> dict:
     plain_profile = profiled(plain)
     for data, model_parallel in layouts:
         mesh = make_mesh(world_size, model_parallel=model_parallel, device="cuda")
-        sharded = run_steps(config, batch, mesh)
+        sharded = run_steps(config, batch, mesh, census=True)
         sharded32 = run_steps(f32, batch, mesh)
         lay = {"losses": sharded["losses"], "losses32": sharded32["losses"],
                "vs_plain": _md_deltas(sharded, plain), "vs_plain_again": _md_deltas(sharded, again),
                "bf16_vs_f32": _md_deltas(sharded, plain32),
                "vs32": _md_deltas(sharded32, plain32), "vs64": _md_deltas(sharded32, ref64),
-               "launches": sharded["launches"], "replay": replay(sharded32),
+               "launches": sharded["launches"], "sync_sites": sharded["sync_sites"],
+               "replay": replay(sharded32),
                "scores32": scores(sharded32, f32)}
         del sharded32
         lay.update(timed(plain, sharded))
@@ -3064,11 +3279,12 @@ def multi_device_phase(layouts: tuple[tuple[int, int], ...]) -> dict:
     loss's and the stats' floors at least `data` f32 spacings: beyond);
     its parameters within MD_REPLAY_RTOL of the replay; on a one-rank
     mesh, where no sum is split, the bf16 recipe against both plain runs
-    within MD_FLOOR_FACTOR times the plain-twice floor as well (CTC's CUDA
-    backward uses atomics; a floor of 0 asks for bitwise equality), while a
+    within MD_FLOOR_FACTOR times the plain-twice floor as well (a floor of
+    0 asks for bitwise equality), while a
     split sum flips bf16 roundings through the 17 blocks, so there the bf16
-    deltas are printed beside the f32 gate; one log-mel and no quantized
-    launch a step; one lattice launch a sharded scores call (the batch
+    deltas are printed beside the f32 gate; one log-mel, two ctc_loss and
+    no quantized launch a step; no synchronizing call from the CTC loss in
+    a sharded step; one lattice launch a sharded scores call (the batch
     form over the rank's rows); the sharded scores (B, 6) with the unsharded model's
     infinities and finite scores within SCORE_RTOL·max|score| (in bf16 on a
     one-rank mesh, in f32 on every layout); every rank's losses equal."""
@@ -3151,6 +3367,13 @@ def multi_device_phase(layouts: tuple[tuple[int, int], ...]) -> dict:
         print(f"    launches a sharded step {lay['launches']}; f32 parameters against the "
               f"replay of their gradients: largest per-leaf max|Δp|/max|p| {lay['replay']:.4g}",
               flush=True)
+        print(f"    synchronizing calls a sharded bf16 step (each ends in its loss's read): "
+              f"{[sum(d.values()) for d in lay['sync_sites']]}, at {lay['sync_sites']}",
+              flush=True)
+        ours = sorted({k for d in lay["sync_sites"] for k in d
+                       if k.startswith("tilawa_tpu_torch/")})
+        if ours:
+            bad.append((name, "the port's own code synchronizes in a step", ours))
         bad += [(name, "f32", key) for key in beyond(lay["vs64"], r["floor32"],
                                                      int(name.split("x")[0]),
                                                      ("loss", "grad", "stats"))]
@@ -3159,8 +3382,8 @@ def multi_device_phase(layouts: tuple[tuple[int, int], ...]) -> dict:
         if one_rank:
             bad += [(name, what, key) for what in ("vs_plain", "vs_plain_again")
                     for key in beyond(lay[what], r["floor"])]
-        if any(n != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 0, "ctc_lattice": 0}
-               for n in lay["launches"]):
+        if any(n != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 0, "ctc_lattice": 0,
+                     "ctc_loss": CTC_LOSS_LAUNCHES_PER_STEP} for n in lay["launches"]):
             bad.append((name, "launches", lay["launches"]))
         if any(sc["launches"]["ctc_lattice"] != 1 for sc in (lay["scores"], lay["scores32"])):
             bad.append((name, "one lattice launch a scores call",
@@ -3183,12 +3406,15 @@ def multi_device_phase(layouts: tuple[tuple[int, int], ...]) -> dict:
             "log_mel_launches": sum(n["log_mel"] for n in lay["launches"])
             + lay["scores"]["launches"]["log_mel"],
             "ctc_lattice_launches": lay["scores"]["launches"]["ctc_lattice"]
-            + lay["scores32"]["launches"]["ctc_lattice"]}
+            + lay["scores32"]["launches"]["ctc_lattice"],
+            "ctc_loss_launches": sum(n["ctc_loss"] for n in lay["launches"]),
+            "sync_sites": lay["sync_sites"]}
     if bad:
         raise AssertionError(f"the sharded step differs from the plain one: {bad}")
     summary["log_mel_launches"] = sum(v["log_mel_launches"] for v in summary["layouts"].values())
     summary["ctc_lattice_launches"] = sum(v["ctc_lattice_launches"]
                                           for v in summary["layouts"].values())
+    summary["ctc_loss_launches"] = sum(v["ctc_loss_launches"] for v in summary["layouts"].values())
     return summary
 
 
@@ -3261,6 +3487,7 @@ def run(bundles: str | None = None) -> int:
             check_int8(torch, np, quant, flush),
             check_lattice(torch, np, ctc, flush),
         ]
+        entries.append(check_ctc_loss(torch, np, ctc, flush, lattice_chain_us(entries[3])))
     del flush
     if bundles is not None:
         return bundle_section(torch, np, kernels, rerank, entries, kind, count, smi)
@@ -3326,7 +3553,7 @@ def run(bundles: str | None = None) -> int:
         lattice_paths = {"main path": lattice_report(torch, rerank, "main path", lattice,
                                                      len(CLIPS))}
         entries[3]["replay_max_abs_err"] = replay_err
-        for e in entries[:2] + entries[3:]:
+        for e in entries[:2] + entries[3:4]:
             e["clips_launches"] = launches[e["name"]]
 
     with phase("plain path"):
@@ -3353,7 +3580,7 @@ def run(bundles: str | None = None) -> int:
             eval_rec, eval_res, eval_launches = eval_path(
                 torch, kernels, get_experiment, load_manifest, run_experiment)
         check_lattice_launches(MAIN_EXPERIMENT, eval_launches, lattice)
-        for e in entries[:2] + entries[3:]:
+        for e in entries[:2] + entries[3:4]:
             e["launches"] = eval_launches[e["name"]]
         other_experiments(get_experiment, load_manifest, run_experiment)
 
@@ -3369,7 +3596,7 @@ def run(bundles: str | None = None) -> int:
             _bres, batched_launches = batched_path(torch, np, kernels, frontend, eval_rec,
                                                    eval_res, audios)
         check_lattice_launches("batched", batched_launches, lattice)
-        for e in entries[:2] + entries[3:]:
+        for e in entries[:2] + entries[3:4]:
             e["batched_launches"] = batched_launches[e["name"]]
 
     with phase("bench"):
@@ -3389,7 +3616,7 @@ def run(bundles: str | None = None) -> int:
         one = dict(kernels.LAUNCHES)
         print(f"  one stream6-int8 forward: launches {one}", flush=True)
         if one != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": INT8_LAUNCHES_PER_FORWARD,
-                   "ctc_lattice": 0}:
+                   "ctc_lattice": 0, "ctc_loss": 0}:
             raise AssertionError("a stream6-int8 forward must launch 189 int8 and 1 log-mel kernels")
         audio = load_audio(CORPUS / CLIPS[1])
         fwd = []
@@ -3434,11 +3661,13 @@ def run(bundles: str | None = None) -> int:
         with phase("train"):
             trained = train_phase(torch, np, kernels, Path(tmp) / "finetune")
             entries[1]["train_launches"] = trained["log_mel_launches"]
+            entries[4]["launches"] = trained["ctc_loss_launches"]
         with phase("train vs plain"):
             versus = train_vs_plain(torch, np)
         with phase("distill"):
             distilled = distill_phase(torch, np, kernels)
             entries[0]["train_launches"] = distilled["int4_launches"]
+            entries[4]["path_launches"] = {"distill": distilled["ctc_loss_launches"]}
         with phase("export"):
             export_phase(torch, kernels, trained["checkpoint"], Path(tmp) / "bundle", manifest)
 
@@ -3460,10 +3689,12 @@ def run(bundles: str | None = None) -> int:
             ph_train = phoneme_train_phase(torch, np, kernels, CHAMPION, Path(tmp) / "phoneme",
                                            PHONEME_TRAIN_STEPS, keeps_head=False)
             entries[1]["path_launches"]["train.phoneme"] = ph_train["log_mel_launches"]
+            entries[4]["path_launches"]["train.phoneme"] = ph_train["ctc_loss_launches"]
     with phase("multi-device"):
         multi = multi_device_phase(((1, 1),))
         entries[1]["path_launches"]["multi-device"] = multi["log_mel_launches"]
         entries[3]["path_launches"]["multi-device"] = multi["ctc_lattice_launches"]
+        entries[4]["path_launches"]["multi-device"] = multi["ctc_loss_launches"]
         t = time.perf_counter()
         multi["cpu_dryrun"] = dryrun_multichip(8, device="cpu")
         multi["cpu_dryrun_s"] = time.perf_counter() - t
@@ -3523,7 +3754,7 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
         print(f"  one phoneme-int8 forward of {CLIPS[1]}: log-probs {tuple(lp.shape)}, t_valid "
               f"{t}; launches {one}", flush=True)
         if one != {"int4_matmul": 0, "log_mel": 1, "int8_matmul": INT8_LAUNCHES_PER_FORWARD,
-                   "ctc_lattice": 0} or lp.shape[-1] != 70:
+                   "ctc_lattice": 0, "ctc_loss": 0} or lp.shape[-1] != 70:
             raise AssertionError("a phoneme-int8 forward must launch 189 int8 and 1 log-mel "
                                  "kernels and give 70 classes")
         lattice = {}
@@ -3532,7 +3763,8 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
                 torch, kernels, rerank, exp, [rt], section, load_manifest, run_experiment)
             if fw[0] == 0 or launches != {"int4_matmul": 0, "log_mel": fw[0],
                                           "int8_matmul": INT8_LAUNCHES_PER_FORWARD * fw[0],
-                                          "ctc_lattice": lattice[section]["chunks"]}:
+                                          "ctc_lattice": lattice[section]["chunks"],
+                                          "ctc_loss": 0}:
                 raise AssertionError(f"{PHONEME} [{section}]: launches {launches} over {fw} "
                                      f"forwards, want 189 int8 + 1 log-mel a forward and "
                                      f"one lattice launch a scorer chunk")
@@ -3582,7 +3814,8 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
         check_lattice_launches("heldout", launches, heldout_lattice)
         if fw[0] == 0 or launches != {"int4_matmul": INT4_LAUNCHES_PER_FORWARD * fw[0],
                                       "log_mel": fw[0], "int8_matmul": 0,
-                                      "ctc_lattice": heldout_lattice["chunks"]}:
+                                      "ctc_lattice": heldout_lattice["chunks"],
+                                      "ctc_loss": 0}:
             raise AssertionError("heldout did not run 189 int4 and 1 log-mel launches a forward "
                                  "and one lattice launch a scorer chunk")
         entries[0]["launches"] = launches["int4_matmul"]
@@ -3593,6 +3826,7 @@ def bundle_section(torch, np, kernels, rerank, entries: list, kind: str, count: 
             cont = phoneme_train_phase(torch, np, kernels, PHONEME_BUNDLE, Path(tmp) / "cont",
                                        CONTINUE_STEPS, keeps_head=True)
             entries[1]["train_launches"] = cont["log_mel_launches"]
+            entries[4]["launches"] = cont["ctc_loss_launches"]
 
     print(f"chip_smoke: wall {time.perf_counter() - _T0:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3719,7 +3953,7 @@ def run_lattice_sweep() -> int:
     with phase("device"):
         kind, count, smi = device_line(torch)
     with phase("build"):
-        for name, r in kernels.build(("ctc_lattice",)).items():
+        for name, r in kernels.build(("ctc_lattice", "ctc_loss")).items():
             print(f"  {name}: {r['seconds']:.1f} s -> {Path(r['path']).name}", flush=True)
             for line in r["log"].splitlines():
                 if any(w in line for w in ("registers", "spill", "smem", "stack", "Compiling")):
@@ -3727,6 +3961,7 @@ def run_lattice_sweep() -> int:
     flush = torch.empty(1 << 30, dtype=torch.uint8, device=DEVICE)
     with phase("kernels vs plain"):
         entry = check_lattice(torch, np, ctc, flush)
+        loss_entry = check_ctc_loss(torch, np, ctc, flush, lattice_chain_us(entry))
     with phase("clocks"):
         # the SM clock while one candidate's chain runs back to back (~2 s)
         lp, tokens, lens = lattice_case(torch, np, 512, 1025, 1, 128, (1,), SEED)
@@ -3764,7 +3999,8 @@ def run_lattice_sweep() -> int:
                 sweep.append({"label": label, "plan": dataclasses.asdict(plan), "ms": ms,
                               "us_per_frame": us})
             del lp, ref
-    print(json.dumps({"lattice": entry, "sweep": sweep, "clocks": clocks, "device": kind,
+    print(json.dumps({"lattice": entry, "ctc_loss": loss_entry, "sweep": sweep,
+                      "clocks": clocks, "device": kind,
                       "count": count, "nvidia_smi": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -27,7 +27,11 @@ same step (chip_smoke.train_vs_plain). The CTC lattice against its plain
 version (the same f32 logaddexp recursion, IEEE expf/log1pf in the same
 order): equal +inf patterns, finite scores within rtol/atol 1e-5, and the
 same best candidate (argmin) a call; each of its variants (one warp, warp
-group, cluster) also bitwise (`-k lattice`)."""
+group, cluster) also bitwise (`-k lattice`). The training CTC loss
+(`-k ctc_loss`) against its plain version: each row's loss within rel
+1e-5 and its gradient within 1e-4 of its plain max|g| (the same f32
+recursion with IEEE expf/log1pf in the same order, the sums of the softmax
+and of the posteriors in other orders), two runs bitwise equal."""
 
 import dataclasses
 import sys
@@ -156,10 +160,10 @@ def test_champion_kernel_path_matches_plain_path(cuda):
     kernels.reset_launches()
     _lp, ids_k, t_k = kernel_rt.forward(audio)
     assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0,
-                               "ctc_lattice": 0}
+                               "ctc_lattice": 0, "ctc_loss": 0}
     _lp, ids_p, t_p = plain_rt.forward(audio)
     assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0,
-                               "ctc_lattice": 0}
+                               "ctc_lattice": 0, "ctc_loss": 0}
     assert t_k == t_p
     assert collapse_ctc(ids_k, 1024) == collapse_ctc(ids_p, 1024)
 
@@ -226,10 +230,10 @@ def test_stream6_kernel_path_matches_plain_path(cuda):
     kernels.reset_launches()
     _lp, ids_k, t_k = kernel_rt.forward(audio)
     assert kernels.LAUNCHES == {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 189,
-                               "ctc_lattice": 0}
+                               "ctc_lattice": 0, "ctc_loss": 0}
     _lp, ids_p, t_p = plain_rt.forward(audio)
     assert kernels.LAUNCHES == {"int4_matmul": 0, "log_mel": 1, "int8_matmul": 189,
-                               "ctc_lattice": 0}
+                               "ctc_lattice": 0, "ctc_loss": 0}
     assert t_k == t_p
     assert collapse_ctc(ids_k, 1024) == collapse_ctc(ids_p, 1024)
 
@@ -305,7 +309,7 @@ def test_fused_epilogues_match_plain(cuda, m, k, n):
     _held_as_layer(out8, quant.int8_dense_plain(x, q, s8, bias), quant.int8_dense_plain(x, q, s8))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"int4_matmul": 3, "log_mel": 0, "int8_matmul": 1,
-                               "ctc_lattice": 0}
+                               "ctc_lattice": 0, "ctc_loss": 0}
 
 
 def test_streaming_cache_matches_forward_long(cuda):
@@ -455,7 +459,7 @@ def test_teacher_forward_launches_int4(cuda):
         lp, _ = teacher(audio, lens)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"int4_matmul": 189, "log_mel": 1, "int8_matmul": 0,
-                               "ctc_lattice": 0}
+                               "ctc_lattice": 0, "ctc_loss": 0}
     assert not lp.is_inference() and lp.grad_fn is None
     student_like = torch.zeros_like(lp, requires_grad=True)
     (torch.exp(lp) * (lp - student_like)).sum().backward()
@@ -494,7 +498,7 @@ def test_wrappers_raise_on_inputs_that_need_a_gradient(cuda):
             assert call().grad_fn is None
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"int4_matmul": 2, "log_mel": 1, "int8_matmul": 2,
-                               "ctc_lattice": 2}
+                               "ctc_lattice": 2, "ctc_loss": 0}
 
 
 @pytest.mark.parametrize("keep", [12, 8, 6])
@@ -516,7 +520,7 @@ def test_pruned_forward_launches(cuda, keep):
     _lp, ids, t = runtime.forward(audio)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"int4_matmul": 11 * keep + 2, "log_mel": 1,
-                               "int8_matmul": 0, "ctc_lattice": 0}
+                               "int8_matmul": 0, "ctc_lattice": 0, "ctc_loss": 0}
     from tilawa_tpu_torch.pipeline.runtime import EncoderRuntime
 
     plain = EncoderRuntime(dataclasses.replace(runtime.config, use_pallas=False),
@@ -681,3 +685,129 @@ def test_rerank_scores_through_the_kernel(cuda):
     assert kernels.LAUNCHES["ctc_lattice"] == 2
     chip_smoke.lattice_gate(torch, "score_token_lists", got, ref)
     np.testing.assert_array_equal(got, ref)
+
+
+# The training CTC loss (csrc/ctc_loss.cu) at the training buckets' shapes:
+# text at V 1,025 and phonemes at V 70 (chip_smoke.CTC_LOSS_CASES), with
+# repeats, rows shorter than T and an infeasible row.
+_CTC_LOSS_CASES = [chip_smoke.CTC_LOSS_CASES[i] for i in (0, 1, 6, 8, 9, 15, 16)]
+
+
+def _ctc_loss_run(case, seed, weight=None):
+    _label, b, t, v, l_pad, l_max = case
+    x, enc, tokens, lens, blank = chip_smoke.ctc_loss_case(torch, np, b, t, v, l_pad, l_max,
+                                                           seed)
+    weight = torch.full((b,), 1.0 / b, device=x.device) if weight is None else weight
+    xg = x.detach().requires_grad_()
+    loss = ctc.ctc_loss(xg, enc, tokens, lens, blank)
+    (grad,) = torch.autograd.grad(loss, xg, weight)
+    return (x, enc, tokens, lens, blank, weight), loss.detach(), grad
+
+
+@pytest.mark.parametrize("case", _CTC_LOSS_CASES, ids=[c[0] for c in _CTC_LOSS_CASES])
+def test_ctc_loss_kernel_matches_plain(cuda, case):
+    """Loss (rel 1e-5 a row) and gradient (max|Δ| ≤ 1e-4 of the plain
+    max|g| a row) against ctc_loss_plain and ctc_loss_grad_plain; one
+    launch forward and one backward."""
+    kernels.reset_launches()
+    (x, enc, tokens, lens, blank, weight), loss, grad = _ctc_loss_run(case, 5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctc_loss"] == 2
+    ref_loss = ctc.ctc_loss_plain(x, enc, tokens, lens, blank)
+    ref_grad = ctc.ctc_loss_grad_plain(x, enc, tokens, lens, blank, weight)
+    chip_smoke.ctc_loss_gate(torch, case[0], loss, grad, ref_loss, ref_grad)
+    assert kernels.LAUNCHES["ctc_loss"] == 2
+
+
+def test_ctc_loss_kernel_edge_rows(cuda):
+    """L = 0, a last label equal to the padding token, a row that fills the
+    padded width, enc_len 0 and past T, a label equal to its neighbour,
+    and per-row upstream weights (distillation's per-token division)."""
+    rng = np.random.default_rng(3)
+    v, blank = 9, 8
+    x = torch.from_numpy(rng.standard_normal((5, 16, v)).astype(np.float32)).to(cuda)
+    enc = torch.tensor([16, 12, 16, 0, 40], dtype=torch.int32, device=cuda)
+    tokens = torch.tensor([[0, 0, 0, 0, 0, 0], [3, 5, 0, 0, 0, 0], [1, 2, 2, 4, 6, 7],
+                           [2, 3, 0, 0, 0, 0], [4, 4, 1, 2, 0, 0]], dtype=torch.int32,
+                          device=cuda)
+    lens = torch.tensor([0, 3, 6, 2, 4], dtype=torch.int32, device=cuda)
+    weight = 1.0 / lens.clamp(min=1).float() / 5
+    xg = x.clone().requires_grad_()
+    loss = ctc.ctc_loss(xg, enc, tokens, lens, blank)
+    (grad,) = torch.autograd.grad(loss, xg, weight)
+    ref_loss = ctc.ctc_loss_plain(x, enc, tokens, lens, blank)
+    ref_grad = ctc.ctc_loss_grad_plain(x, enc, tokens, lens, blank, weight)
+    chip_smoke.ctc_loss_gate(torch, "edge rows", loss.detach(), grad, ref_loss, ref_grad)
+    assert not bool(grad[3].any()) and not bool(grad[1, 12:].any())
+
+
+def test_ctc_loss_label_outside_the_vocabulary_gives_a_nan_row(cuda):
+    """A label >= V or < 0 (in the first warp's states, or past them where
+    the row's chain spans two warps) gives that row a NaN loss and a NaN
+    gradient row; the other rows keep the plain version's loss and
+    gradient."""
+    rng = np.random.default_rng(4)
+    v, blank, n = 9, 8, 40
+    x = torch.from_numpy(rng.standard_normal((4, 60, v)).astype(np.float32)).to(cuda)
+    enc = torch.full((4,), 60, dtype=torch.int32, device=cuda)
+    tokens = torch.from_numpy(rng.integers(0, blank, (4, n)).astype(np.int32)).to(cuda)
+    tokens[1, 1], tokens[2, 35], tokens[3, 0] = v, v + 3, -1
+    lens = torch.tensor([3, 3, n, 2], dtype=torch.int32, device=cuda)
+    xg = x.clone().requires_grad_()
+    loss = ctc.ctc_loss(xg, enc, tokens, lens, blank)
+    (grad,) = torch.autograd.grad(loss, xg, torch.ones(4, device=cuda))
+    assert bool(loss[1:].isnan().all()) and bool(grad[1:].isnan().all())
+    ref_loss = ctc.ctc_loss_plain(x[:1], enc[:1], tokens[:1], lens[:1], blank)
+    ref_grad = ctc.ctc_loss_grad_plain(x[:1], enc[:1], tokens[:1], lens[:1], blank,
+                                       torch.ones(1, device=cuda))
+    chip_smoke.ctc_loss_gate(torch, "good row", loss[:1].detach(), grad[:1], ref_loss, ref_grad)
+
+
+def test_ctc_loss_kernel_is_bitwise_run_to_run(cuda):
+    """No float atomics: two runs give the same bits."""
+    case = chip_smoke.CTC_LOSS_CASES[0]
+    _args, loss, grad = _ctc_loss_run(case, 7)
+    _args, loss2, grad2 = _ctc_loss_run(case, 7)
+    assert torch.equal(loss.view(torch.int32), loss2.view(torch.int32))
+    assert torch.equal(grad.view(torch.int32), grad2.view(torch.int32))
+
+
+def test_ctc_loss_makes_no_host_sync(cuda):
+    """With x, lengths and labels on the card, forward and backward make no
+    synchronizing call (PyTorch's sync debug mode raises on one)."""
+    _label, b, t, v, l_pad, l_max = chip_smoke.CTC_LOSS_CASES[1]
+    x, enc, tokens, lens, blank = chip_smoke.ctc_loss_case(torch, np, b, t, v, l_pad, l_max, 2)
+    xg = x.detach().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = ctc.ctc_loss(xg, enc, tokens, lens, blank).mean()
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(xg.grad).all())
+
+
+def test_ctc_loss_raises_on_what_it_does_not_take(cuda):
+    """A wrong dtype, lengths on another device, a DTensor-like input, labels
+    padded past one block, a vocabulary past the epilogue's: raised before
+    any launch."""
+    x = torch.zeros((2, 5, 4), device=cuda)
+    enc = torch.tensor([5, 5], dtype=torch.int32, device=cuda)
+    tokens = torch.ones((2, 3), dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3, 3], dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="float32"):
+        ctc.ctc_loss(x.double(), enc, tokens, lens, 3)
+    with pytest.raises(ValueError, match="must be on"):
+        ctc.ctc_loss(x, enc.cpu(), tokens, lens, 3)
+    with pytest.raises(TypeError, match="DTensor"):
+        ctc.ctc_loss(type("Sharded", (), {"to_local": None})(), enc, tokens, lens, 3)
+    with pytest.raises(ValueError, match="one block"):
+        ctc.ctc_loss(x, enc, torch.ones((2, 1024), dtype=torch.int32, device=cuda), lens, 3)
+    with pytest.raises(ValueError, match="classes"):
+        ctc.ctc_loss(torch.zeros((2, 5, 9000), device=cuda), enc, tokens, lens, 3)
+    with pytest.raises(ValueError, match="blank"):
+        ctc.ctc_loss(x, enc, tokens, lens, 4)
+    assert kernels.LAUNCHES["ctc_loss"] == 0

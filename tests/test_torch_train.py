@@ -5,8 +5,9 @@ Tolerances (f32 compute everywhere here):
     dropout 0, no SpecAugment): loss rel ≤ 1e-5; each gradient leaf whose
     max|g_jax| is at least GRAD_FLOOR (1e-3) of the whole gradient's largest
     is held to max|Δ| ≤ 1e-4 of its own max|g_jax| (the same f32 math, sums
-    in other orders, and PyTorch's closed-form CTC gradient against autodiff
-    of optax's recursion); a leaf below the floor to 1e-4 of the whole
+    in other orders; the CTC gradient is the port's reverse pass through
+    optax's recursion, ops/ctc.py ctc_loss, against JAX's autodiff of it);
+    a leaf below the floor to 1e-4 of the whole
     gradient's largest: those are the leaves whose gradient is zero in
     exact arithmetic (the key bias, under the softmax's shift invariance;
     the depthwise conv bias under batch-statistics BatchNorm) and hold only

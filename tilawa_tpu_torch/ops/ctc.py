@@ -1,4 +1,5 @@
-"""CTC primitives: greedy collapse and batched forward-algorithm scoring.
+"""CTC primitives: greedy collapse, batched forward-algorithm scoring and
+the training loss.
 
 Port of tilawa_tpu/ops/ctc.py. The JAX scorer is one lax.scan over all
 frames for every candidate at once. Here `ctc_forward_scores` and
@@ -14,6 +15,14 @@ it) and `ctc_forward_scores_batch_plain`.
 
 Scores are length-normalized NLL: score[c] = -log p(tokens_c | logprobs) / L_c,
 +inf for infeasible candidates (2L+1 > t_valid or L == 0).
+
+`ctc_loss` is the training loss, optax.ctc_loss per row with its input
+gradient (the JAX package trains through jax.value_and_grad of it: an XLA
+scan, no Pallas kernel). It is an autograd Function (CTCLoss): for a CUDA
+tensor its forward and its backward each launch the hand-written kernels of
+csrc/ctc_loss.cu once; for a CPU tensor they run the plain versions,
+`ctc_loss_plain` (optax's recursion, a Python loop over frames) and
+`ctc_loss_grad_plain` (the same recursion's adjoints, back over the frames).
 """
 
 from __future__ import annotations
@@ -24,10 +33,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tilawa_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
+LOG_EPSILON = -1e5   # optax.ctc_loss's log(0)
 
 
 def ctc_forward_scores_plain(
@@ -305,6 +316,266 @@ def ctc_forward_scores_batch(
         raise ValueError("ctc_forward_scores_batch: log_probs must be [B, T, V] and t_valid "
                          "a [B] tensor")
     return _launch("ctc_forward_scores_batch", log_probs, t_valid, tokens, lengths, blank_id)
+
+
+# The training loss -------------------------------------------------------------
+#
+# Per row b: x[b] [T, V] f32, enc_len[b] frames (frames at or past it keep the
+# state), labels tokens[b, :L_b] (right-padded to N), blank. lp =
+# log_softmax(x) (optax normalizes its input again); blank states phi [N + 1]
+# and label states emit [N], log(0) = log_epsilon, start phi[0] = 0; a frame:
+#
+#   pp[0] = phi[0];  pp[k] = lae(phi[k], emit[k-1] + c1[k-1])      (k >= 1)
+#   emit'[k] = lae(pp[k] + lp[tok[k]], emit[k] + lp[tok[k]])
+#   phi'[0] = pp[0] + lp[blank]
+#   phi'[k] = lae(pp[k] + lp[blank], (emit[k-1] + lp[blank]) + c2[k-1])
+#
+# with repeat[k] = tokens[k] == tokens[k + 1] over the padded row (0 at the
+# last column), c1 = log_epsilon * repeat and c2 = log_epsilon * (1 - repeat),
+# lae = logaddexp; loss = -lae(phi[L], emit[L-1]), or -phi[0] at L = 0. The
+# states past L never reach phi[L]. The gradient is reverse-mode through the
+# same recursion, as jax.value_and_grad takes it: every lae(a, b) = out hands
+# its output's adjoint to a and b weighted exp(a - out) and exp(b - out). The
+# adjoint of lp[t, v], gamma[t, v], is the occupation posterior of the paths
+# that emit v at t; the gradient at x is g * (softmax(x) * sum_v gamma - gamma),
+# 0 at padded frames. Adjoints are probabilities (<= 1): the frames' huge
+# log_epsilon terms of an infeasible row cancel inside each weight's a - out,
+# one lae at a time, as in autodiff.
+
+CTC_LOSS_MAX_STATES = 1024   # csrc/ctc_loss.cu: one state pair a thread, one block a row
+CTC_LOSS_MAX_VOCAB = 8192    # its gradient epilogue holds a frame's V posteriors in shared memory
+
+
+def _loss_lattice(x, enc_len, tokens, blank_id: int, log_epsilon: float) -> dict:
+    """The forward recursion above on plain tensors: lp, the emissions and
+    penalty terms, and the states after every frame (phis, emits: entry 0
+    the initial state; T_run + 1 entries, T_run the longest row's frames)."""
+    b, t, _v = x.shape
+    n = tokens.shape[1]
+    dev, dt = x.device, x.dtype
+    tokens = tokens.to(dev, torch.long)
+    enc_len = enc_len.to(dev, torch.long)
+    lp = torch.log_softmax(x, dim=-1)                                   # optax normalizes again
+    repeat = F.pad((tokens[:, :-1] == tokens[:, 1:]).to(dt), (0, 1))[:, :n]   # [B, N]
+    c1 = log_epsilon * repeat                                           # emit -> phi
+    c2 = log_epsilon * (1.0 - repeat)                                   # blank -> label side
+    lb = lp[:, :, blank_id]                                             # [B, T]
+    le = torch.gather(lp, 2, tokens[:, None, :].expand(b, t, n))        # [B, T, N]
+    live = torch.arange(t, device=dev)[None, :] < enc_len[:, None]      # [B, T]
+    phi = torch.full((b, n + 1), log_epsilon, dtype=dt, device=dev)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), log_epsilon, dtype=dt, device=dev)
+    phis, emits = [phi], [emit]
+    t_run = min(t, int(enc_len.max())) if b else 0
+    for i in range(t_run):
+        lbi = lb[:, i, None]
+        pp = torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], emit + c1)], dim=1)
+        next_emit = torch.logaddexp(pp[:, :-1] + le[:, i], emit + le[:, i])
+        next_phi = torch.cat([pp[:, :1] + lbi,
+                              torch.logaddexp(pp[:, 1:] + lbi, emit + lbi + c2)], dim=1)
+        keep = live[:, i, None]
+        emit = torch.where(keep, next_emit, emit)
+        phi = torch.where(keep, next_phi, phi)
+        phis.append(phi)
+        emits.append(emit)
+    return {"lp": lp, "le": le, "lb": lb, "c1": c1, "c2": c2, "live": live,
+            "phis": phis, "emits": emits}
+
+
+def _final(phi, emit) -> torch.Tensor:
+    """optax's last blank states: phi[k] after the last emit -> phi step."""
+    return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], emit)], dim=1)
+
+
+def ctc_loss_plain(x, enc_len, tokens, token_lens, blank_id: int,
+                   log_epsilon: float = LOG_EPSILON) -> torch.Tensor:
+    """Per-row CTC NLL [B] by optax.ctc_loss's recursion (see above): x
+    [B, T, V] (normalized again here, as optax does), enc_len, tokens
+    [B, N] and token_lens on x's device; finite on infeasible rows (about
+    -log_epsilon times the frames short). Plain torch ops: autograd
+    differentiates it too."""
+    lat = _loss_lattice(x, enc_len, tokens, blank_id, log_epsilon)
+    last = _final(lat["phis"][-1], lat["emits"][-1])
+    return -last.gather(1, token_lens.to(x.device, torch.long)[:, None])[:, 0]
+
+
+def ctc_loss_grad_plain(x, enc_len, tokens, token_lens, blank_id: int,
+                        grad_loss) -> torch.Tensor:
+    """d(sum_b grad_loss[b] * ctc_loss_plain(x)[b]) / dx, [B, T, V]: the
+    adjoints of the recursion's states back over the frames (vectorized over
+    rows and states), each lae's weights exp(arg - out) from the forward's
+    states, then the posteriors gamma (a label's summed over its positions
+    in increasing k, after the blank's) and g * (exp(lp) * sum gamma - gamma)."""
+    lat = _loss_lattice(x, enc_len, tokens, blank_id, LOG_EPSILON)
+    b, t, v = x.shape
+    n = tokens.shape[1]
+    dev, dt = x.device, x.dtype
+    tokens = tokens.to(dev, torch.long)
+    lens = token_lens.to(dev, torch.long)
+    grad_loss = grad_loss.to(dev, dt).reshape(b)
+    phis, emits, c1, c2 = lat["phis"], lat["emits"], lat["c1"], lat["c2"]
+    rows = torch.arange(b, device=dev)
+    has = lens > 0
+    last = _final(phis[-1], emits[-1])[rows, lens]
+    g_phi = torch.zeros_like(phis[-1])
+    g_emit = torch.zeros_like(emits[-1])
+    g_phi[rows, lens] = torch.where(has, torch.exp(phis[-1][rows, lens] - last), 1.0)
+    if n:
+        prev = (lens - 1).clamp(min=0)
+        g_emit[rows, prev] = torch.where(has, torch.exp(emits[-1][rows, prev] - last), 0.0)
+    one = torch.ones((b, 1), dtype=dt, device=dev)
+    zero = torch.zeros((b, 1), dtype=dt, device=dev)
+    labels = torch.arange(n, device=dev)[None, :] < lens[:, None]
+    grad = torch.zeros_like(x)
+    for i in reversed(range(len(phis) - 1)):
+        p_prev, e_prev, p_cur, e_cur = phis[i], emits[i], phis[i + 1], emits[i + 1]
+        le, lb = lat["le"][:, i], lat["lb"][:, i, None]
+        pp = torch.cat([p_prev[:, :1], torch.logaddexp(p_prev[:, 1:], e_prev + c1)], dim=1)
+        w_a = torch.exp(pp[:, :-1] + le - e_cur)
+        w_b = torch.exp(e_prev + le - e_cur)
+        w_c = torch.cat([one, torch.exp(pp[:, 1:] + lb - p_cur[:, 1:])], dim=1)
+        w_d = torch.exp(e_prev + lb + c2 - p_cur[:, 1:])
+        w_p = torch.cat([one, torch.exp(p_prev[:, 1:] - pp[:, 1:])], dim=1)
+        w_l = torch.exp(e_prev + c1 - pp[:, 1:])
+        g_a = g_emit * w_a
+        g_pp = torch.cat([g_a, zero], dim=1) + g_phi * w_c
+        gam_lab = torch.where(labels, g_a + g_emit * w_b, 0.0)
+        gam_blk = g_phi * w_c + torch.cat([zero, g_phi[:, 1:] * w_d], dim=1)
+        send = g_phi[:, 1:] * w_d + g_pp[:, 1:] * w_l
+        keep = lat["live"][:, i, None]
+        g_phi = torch.where(keep, g_pp * w_p, g_phi)
+        g_emit = torch.where(keep, g_emit * w_b + send, g_emit)
+        blank_sum = gam_blk.sum(dim=1)
+        gam = torch.zeros((b, v), dtype=dt, device=dev)
+        gam[:, blank_id] = blank_sum
+        gam.scatter_add_(1, tokens, gam_lab)
+        total = gam_lab.sum(dim=1) + blank_sum
+        step = grad_loss[:, None] * (torch.exp(lat["lp"][:, i]) * total[:, None] - gam)
+        grad[:, i] = torch.where(keep, step, 0.0)
+    return grad
+
+
+_LOSS_FWD_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
+_LOSS_BWD_ARGTYPES = _LOSS_FWD_ARGTYPES[:11] + [ctypes.c_void_p] * 8
+
+
+def _loss_layout(what, x, enc_len, tokens, token_lens, blank_id: int) -> None:
+    """Raise where the kernels cannot take the inputs."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"{what}: x must be float32 on the card, got {x.dtype}")
+    if not 0 <= blank_id < x.shape[-1]:
+        raise ValueError(f"{what}: blank {blank_id} outside the vocabulary")
+    if tokens.shape[1] + 1 > CTC_LOSS_MAX_STATES:
+        raise ValueError(f"{what}: labels padded to {tokens.shape[1]} do not fit one block "
+                         f"(one thread a state pair: at most {CTC_LOSS_MAX_STATES - 1} labels)")
+    if x.shape[-1] > CTC_LOSS_MAX_VOCAB:
+        raise ValueError(f"{what}: V = {x.shape[-1]} is past the kernel's "
+                         f"{CTC_LOSS_MAX_VOCAB} classes")
+    if any(a.device != x.device for a in (enc_len, tokens, token_lens)):
+        raise ValueError(f"{what}: enc_len, tokens and token_lens must be on {x.device}")
+
+
+def _loss_common(x, enc_len, tokens, token_lens, blank_id) -> tuple[list, int]:
+    """The launchers' leading arguments (shared by forward and backward) and
+    the current stream."""
+    b, t, v = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return [x.data_ptr(), x.stride(0), x.stride(1), b, t, v, enc_len.data_ptr(),
+            tokens.data_ptr(), token_lens.data_ptr(), tokens.shape[1], blank_id], stream
+
+
+def _loss_forward_kernel(x, enc_len, tokens, token_lens, blank_id):
+    """One launch of the forward (normalizer, then the alpha chain a row):
+    the loss [B] and the workspaces the backward reads."""
+    b, t, _v = x.shape
+    n = tokens.shape[1]
+    norm = torch.empty((b, t, 2), dtype=torch.float32, device=x.device)
+    em = torch.empty((b, t, n + 1), dtype=torch.float32, device=x.device)
+    alpha = torch.empty((b, t, n + 1, 2), dtype=torch.float32, device=x.device)
+    loss = torch.empty(b, dtype=torch.float32, device=x.device)
+    args, stream = _loss_common(x, enc_len, tokens, token_lens, blank_id)
+    fn = kernels.function("ctc_loss", "tilawa_ctc_loss_forward", _LOSS_FWD_ARGTYPES)
+    kernels.check(fn(*args, norm.data_ptr(), em.data_ptr(), alpha.data_ptr(), loss.data_ptr(),
+                     stream), "ctc_loss forward")
+    kernels.LAUNCHES["ctc_loss"] += 1
+    return loss, (norm, em, alpha)
+
+
+def _loss_backward_kernel(x, enc_len, tokens, token_lens, blank_id, grad_loss, norm, em,
+                          alpha):
+    """One launch of the backward (the adjoint chain a row, then the
+    gradient epilogue a frame): the gradient [B, T, V]."""
+    b, t, _v = x.shape
+    n = tokens.shape[1]
+    gam = torch.empty((b, t, n + 1, 2), dtype=torch.float32, device=x.device)
+    link = torch.empty((b, max(n, 1), 2), dtype=torch.int32, device=x.device)
+    grad = torch.empty_like(x, memory_format=torch.contiguous_format)
+    grad_loss = grad_loss.to(torch.float32).reshape(b).contiguous()
+    args, stream = _loss_common(x, enc_len, tokens, token_lens, blank_id)
+    fn = kernels.function("ctc_loss", "tilawa_ctc_loss_backward", _LOSS_BWD_ARGTYPES)
+    kernels.check(fn(*args, grad_loss.data_ptr(), norm.data_ptr(), em.data_ptr(),
+                     alpha.data_ptr(), gam.data_ptr(), link.data_ptr(), grad.data_ptr(),
+                     stream), "ctc_loss backward")
+    kernels.LAUNCHES["ctc_loss"] += 1
+    return grad
+
+
+class CTCLoss(torch.autograd.Function):
+    """optax.ctc_loss per row, [B], and its gradient at x. A CPU tensor runs
+    ctc_loss_plain and ctc_loss_grad_plain; a CUDA tensor runs the kernels,
+    one launch forward and one backward, with no host sync."""
+
+    @staticmethod
+    def forward(ctx, x, enc_len, tokens, token_lens, blank_id):
+        ctx.blank_id = blank_id
+        if x.device.type == "cpu":
+            ctx.save_for_backward(x, enc_len, tokens, token_lens)
+            return ctc_loss_plain(x, enc_len, tokens, token_lens, blank_id)
+        loss, work = _loss_forward_kernel(x, enc_len, tokens, token_lens, blank_id)
+        ctx.save_for_backward(x, enc_len, tokens, token_lens, *work)
+        return loss
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_loss):
+        x, enc_len, tokens, token_lens, *work = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 5
+        if x.device.type == "cpu":
+            grad = ctc_loss_grad_plain(x, enc_len, tokens, token_lens, ctx.blank_id,
+                                       grad_loss)
+        else:
+            grad = _loss_backward_kernel(x, enc_len, tokens, token_lens, ctx.blank_id,
+                                         grad_loss, *work)
+        return grad, None, None, None, None
+
+
+def ctc_loss(x: torch.Tensor, enc_len: torch.Tensor, tokens: torch.Tensor,
+             token_lens: torch.Tensor, blank_id: int) -> torch.Tensor:
+    """optax.ctc_loss per row → [B] (not normalized: callers divide), with
+    its gradient at x through autograd. x [B, T, V] (f32 on the card;
+    normalized again inside, as optax does), enc_len [B], tokens [B, N]
+    (right-padded) and token_lens [B], all on x's device: the kernels read
+    each row's lengths on the card, so a CUDA call makes no host sync. For
+    a CUDA tensor the forward and the backward each launch
+    csrc/ctc_loss.cu once (kernels.LAUNCHES["ctc_loss"]) or raise; for a
+    CPU tensor they run ctc_loss_plain and ctc_loss_grad_plain. Plain
+    tensors only: a sharded caller passes its local rows."""
+    kernels.plain_tensors("ctc_loss", x, enc_len, tokens, token_lens)
+    if x.dim() != 3 or tokens.dim() != 2 or enc_len.shape != (x.shape[0],) \
+            or tokens.shape[0] != x.shape[0] or token_lens.shape != (x.shape[0],):
+        raise ValueError("ctc_loss: x must be [B, T, V], tokens [B, N], enc_len and "
+                         "token_lens [B]")
+    if x.device.type == "cuda":
+        _loss_layout("ctc_loss", x, enc_len, tokens, token_lens, blank_id)
+        if x.stride(-1) != 1:
+            x = x.contiguous()
+        enc_len, tokens, token_lens = (a.to(torch.int32).contiguous()
+                                       for a in (enc_len, tokens, token_lens))
+    elif x.device.type != "cpu":
+        raise ValueError(f"ctc_loss runs on cuda or cpu tensors, got {x.device}")
+    return CTCLoss.apply(x, enc_len, tokens, token_lens, blank_id)
 
 
 def collapse_ctc(ids, blank_id: int) -> list[int]:

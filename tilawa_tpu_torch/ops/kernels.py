@@ -12,11 +12,13 @@ The launch counters are plain integers, one per kernel. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels.
 
-The kernels compute forward only: a wrapper handed a tensor that needs a
-gradient under grad mode raises (forward_only), on every device, rather
-than return an output with no grad_fn that would silently drop the
-gradient. A wrapper handed a DTensor raises too, rather than run on its
-local part silently.
+The inference kernels compute forward only: a wrapper handed a tensor that
+needs a gradient under grad mode raises (forward_only), on every device,
+rather than return an output with no grad_fn that would silently drop the
+gradient. The training loss (ops/ctc.py ctc_loss) is an autograd Function
+whose backward is a kernel of its own library; it counts a launch for its
+forward and one for its backward. A wrapper handed a DTensor raises
+(plain_tensors), rather than run on its local part silently.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("int4_matmul", "log_mel", "int8_matmul", "ctc_lattice")
+KERNELS = ("int4_matmul", "log_mel", "int8_matmul", "ctc_lattice", "ctc_loss")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -147,13 +149,18 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
-def forward_only(what: str, *tensors) -> None:
-    """Raise if an input is a DTensor (a kernel reads plain memory through
-    ctypes: a sharded caller hands it its local part itself), or if
-    autograd would need a gradient through a kernel's inputs."""
+def plain_tensors(what: str, *tensors) -> None:
+    """Raise if an input is a DTensor: a kernel reads plain memory through
+    ctypes, so a sharded caller hands it its local part itself."""
     if any(hasattr(t, "to_local") for t in tensors):
         raise TypeError(f"{what} takes plain tensors, not a DTensor: a sharded caller "
                         "passes its local part (DTensor.to_local())")
+
+
+def forward_only(what: str, *tensors) -> None:
+    """Raise if an input is a DTensor (plain_tensors), or if autograd would
+    need a gradient through a kernel's inputs."""
+    plain_tensors(what, *tensors)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what} computes forward only and has no backward: an input requires a "

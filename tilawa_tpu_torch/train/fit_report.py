@@ -91,7 +91,7 @@ def corpus_fit(
                 tlens[j] = len(ids)
             with torch.inference_mode():
                 log_probs, enc_lens = model(upload(audio, dev), upload(alens, dev))
-                losses = ctc_losses(log_probs, enc_lens.cpu(), toks, tlens,
+                losses = ctc_losses(log_probs, enc_lens, toks, tlens,
                                     config.blank_id).cpu().numpy()
             for j, (sid, corpus, a, ids) in enumerate(chunk):
                 out.append({

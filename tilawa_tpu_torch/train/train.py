@@ -23,22 +23,20 @@ parameter: optax's mask is None, so norms are decayed too) at optax's
 warmup_cosine_decay_schedule(0, lr, warmup, total) taken at the update
 count before the update, so step 0 has lr 0 and changes no parameter.
 
-ctc_loss_fn is F.ctc_loss (optax's CTC is an XLA scan, not a TPU kernel).
-Two differences from optax are handled here:
-  * an infeasible row (fewer frames than labels plus repeated neighbours)
-    is inf in PyTorch and a large finite loss in optax, whose log(0) is
-    log_epsilon = -1e5. random_window_crop followed by speed perturbation
-    (train/data.py) does produce such rows (a crop with no spare frame,
-    played 0.9x faster); those rows are scored by ctc_loss_optax, a port of
-    optax's recursion, so loss and gradient match the JAX package there;
-  * on CUDA with blank != 0 PyTorch runs its native kernel, whose backward
-    uses atomics: two runs may differ in the last bits (torch's
-    deterministic-algorithms mode refuses it). Its backward returns
-    exp(lp) - posterior, right only because the head ends in log_softmax;
-    compare gradients at the parameters, not at the log-probs.
-The lengths are read on the host (encoder_lengths from the batch's
-sample counts), so a step makes no host sync; train() reads the loss only
-at log_every.
+ctc_loss_fn is optax.ctc_loss's mean over the batch: ctc_losses is one call
+of ops/ctc.py ctc_loss, an autograd Function whose forward and backward
+are each one launch of the hand-written CUDA kernels (csrc/ctc_loss.cu) on
+the card, and the plain recursion on the CPU. It is optax's function, not
+PyTorch's: log(0) is log_epsilon = -1e5, so an infeasible row (fewer frames
+than labels plus repeated neighbours; random_window_crop followed by the
+0.9x speed perturbation of train/data.py does produce them, and phoneme
+batches often) has a large finite loss, never inf; the input is normalized
+again (log_softmax), and the gradient is autodiff's of that recursion, the
+softmax Jacobian included. Its sums run in a fixed order with no atomics,
+so two runs give the same loss and gradient bit for bit. The lengths and tokens come from
+the host's batch (encoder_lengths from the sample counts) and reach the
+card with device.upload; the kernels read them there, so a step makes no
+host sync; train() reads the loss only at log_every.
 
 Randomness: one torch.Generator per step, seeded from (seed + 1, step)
 (step_generator), so any step can be repeated; it draws SpecAugment and
@@ -55,7 +53,6 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from tilawa_tpu_torch.device import resolve_device, upload
 from tilawa_tpu_torch.models.fastconformer import (
@@ -63,9 +60,9 @@ from tilawa_tpu_torch.models.fastconformer import (
     FastConformerCTC,
     subsampled_length,
 )
+from tilawa_tpu_torch.ops.ctc import ctc_loss
+from tilawa_tpu_torch.ops.ctc import ctc_loss_plain as ctc_loss_optax  # noqa: F401 (importable here)
 from tilawa_tpu_torch.ops.frontend import HOP_LENGTH, WIN_LENGTH
-
-LOG_EPSILON = -1e5   # optax.ctc_loss's log(0)
 
 
 @dataclasses.dataclass
@@ -154,70 +151,25 @@ def encoder_lengths(audio_lens) -> np.ndarray:
     return subsampled_length(frames)
 
 
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-
-
-def ctc_loss_optax(log_probs, enc_lens, tokens, token_lens, blank_id: int,
-                   log_epsilon: float = LOG_EPSILON) -> torch.Tensor:
-    """Per-sequence CTC NLL [B] by optax.ctc_loss's recursion (blank and
-    label alphas, log(0) = log_epsilon, frames at or past a row's length
-    keep its state). log_probs [B, T, V] f32; the rest on the same device."""
-    b, t, _v = log_probs.shape
-    n = tokens.shape[1]
-    dev = log_probs.device
-    lp = torch.log_softmax(log_probs, dim=-1)          # optax normalizes again
-    tokens = tokens.long()
-    repeat = F.pad((tokens[:, :-1] == tokens[:, 1:]).float(), (0, 1))        # [B, N]
-    phi_lp = lp[:, :, blank_id]                                               # [B, T]
-    emit_lp = torch.gather(lp, 2, tokens[:, None, :].expand(b, t, n))         # [B, T, N]
-    pad = (torch.arange(t, device=dev)[None, :] >= enc_lens[:, None]).float()  # [B, T]
-
-    def add_phi(phi, score):
-        return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], score)], dim=-1)
-
-    phi = torch.full((b, n + 1), log_epsilon, device=dev)
-    phi[:, 0] = 0.0
-    emit = torch.full((b, n), log_epsilon, device=dev)
-    for i in range(t):
-        prev_phi_orig = phi
-        prev_phi = add_phi(phi, emit + log_epsilon * repeat)
-        next_emit = torch.logaddexp(prev_phi[:, :-1] + emit_lp[:, i], emit + emit_lp[:, i])
-        next_phi = add_phi(prev_phi + phi_lp[:, i, None],
-                           emit + phi_lp[:, i, None] + log_epsilon * (1.0 - repeat))
-        p = pad[:, i, None]
-        emit = p * emit + (1.0 - p) * next_emit
-        phi = p * prev_phi_orig + (1.0 - p) * next_phi
-    last = add_phi(phi, emit)
-    return -last.gather(1, token_lens.long()[:, None])[:, 0]
+def _on(a, device: torch.device) -> torch.Tensor:
+    """A length or token array as a tensor on `device`, queued without a
+    host sync: host arrays (and CPU tensors) through device.upload, a tensor
+    already on `device` as it is."""
+    if not torch.is_tensor(a):
+        return upload(np.asarray(a), device)
+    if a.device == device:
+        return a
+    return upload(a.numpy(), device) if a.device.type == "cpu" else a.to(device)
 
 
 def ctc_losses(log_probs, enc_lens, tokens, token_lens, blank_id: int) -> torch.Tensor:
-    """Per-sequence CTC NLL [B] as optax.ctc_loss gives it: F.ctc_loss on
-    [T, B, V], with the infeasible rows (decided on the host from the
-    lengths and tokens) from ctc_loss_optax. Lengths and tokens may be
-    host arrays; given as device tensors they cost a host read."""
+    """Per-sequence CTC NLL [B] as optax.ctc_loss gives it (ops/ctc.py
+    ctc_loss: infeasible rows finite, the gradient autodiff's). Lengths and
+    tokens may be host arrays or tensors; they are uploaded without a host
+    sync."""
     dev = log_probs.device
-    enc, tok, tl = _host(enc_lens).astype(np.int64), _host(tokens), _host(token_lens)
-    tokens_dev = tokens.to(dev, torch.long) if torch.is_tensor(tokens) else \
-        upload(tok.astype(np.int64), dev)
-    losses = F.ctc_loss(
-        log_probs.transpose(0, 1), tokens_dev, torch.from_numpy(enc),
-        torch.from_numpy(tl.astype(np.int64)), blank=blank_id, reduction="none",
-        zero_infinity=True,
-    )
-    need = np.array([
-        n + int(np.sum(row[1:n] == row[:n - 1])) for row, n in zip(tok, tl)
-    ])
-    rows = np.flatnonzero(need > enc)
-    if len(rows):
-        idx = upload(rows, dev)
-        t = max(int(enc[rows].max()), 1)
-        sub = ctc_loss_optax(
-            log_probs[idx, :t], upload(enc[rows], dev), tokens_dev[idx],
-            upload(tl[rows].astype(np.int64), dev), blank_id)
-        losses = losses.index_put((idx,), sub)
-    return losses
+    return ctc_loss(log_probs, _on(enc_lens, dev), _on(tokens, dev), _on(token_lens, dev),
+                    blank_id)
 
 
 def ctc_loss_fn(log_probs, enc_lens, tokens, token_lens, blank_id: int) -> torch.Tensor:
@@ -250,8 +202,8 @@ def make_train_step(blank_id: int, freeze_bn: bool = False):
     model: where parallel/sharding.py shard_variables has placed the
     model's variables on a mesh (`model.axes` set), every rank gives the
     same global batch and generator, uploads its rows, takes its share of
-    the global mean CTC loss on local tensors (F.ctc_loss takes no
-    DTensor), reduces the gradients and returns the global loss."""
+    the global mean CTC loss on local tensors (ctc_loss takes no DTensor),
+    reduces the gradients and returns the global loss."""
 
     def train_step(state: TrainState, batch, generator: torch.Generator) -> torch.Tensor:
         model, opt = state.model, state.optimizer
