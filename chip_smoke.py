@@ -11,12 +11,13 @@
                                  # the CTC kernels alone: the lattice at every
                                  # shape under each variant that fits, each
                                  # bitwise its plain version, and the training
-                                 # loss at every training bucket, timed
+                                 # loss at every training bucket under each
+                                 # layout that holds it, timed
     python3 chip_smoke.py --lattice-compare _parent
-                                 # this checkout's lattice kernel beside the
-                                 # port in _parent (e.g. `git archive` of the
-                                 # parent commit's tilawa_tpu_torch/, in an
-                                 # ignored directory) at every lattice shape
+                                 # this checkout's CTC kernels beside the port
+                                 # in _parent (e.g. `git archive` of the parent
+                                 # commit's tilawa_tpu_torch/, in an ignored
+                                 # directory) at every lattice and loss shape
 
 Phases (each prints its elapsed seconds; any failure exits non-zero
 without the final line):
@@ -46,11 +47,12 @@ without the final line):
                  yardstick, the variant (ops/ctc.py lattice_plan) each shape
                  ran and its us a frame; the training CTC loss (forward and
                  backward) at every training bucket's B x T with v1's label
-                 lengths, V 1,025 and the phoneme batches' V 70
-                 (CTC_LOSS_CASES): each row's loss and gradient against the
-                 plain version (CTC_LOSS_TOL, CTC_GRAD_TOL), two runs
-                 bitwise equal, kernel, plain and F.ctc_loss ms, the bound
-                 and the chain floor
+                 lengths, V 1,025 and the phoneme batches' V 70, and a
+                 phoneme batch past 1,023 labels (CTC_LOSS_CASES): each
+                 row's loss bitwise and gradient against the plain version
+                 (CTC_LOSS_TOL, CTC_GRAD_TOL), two runs bitwise equal, the
+                 layout (ops/ctc.py loss_plan), kernel, plain and
+                 F.ctc_loss ms, the bound and the chain floor
   4. main path   champion-int4 Recognizer(tta=True).predict over wav clips
                  of benchmark/test_corpus (each must match the manifest),
                  plus the >25 s transcribe fallback; launch counters are
@@ -119,13 +121,17 @@ without the final line):
                  finite losses, nothing moved by step 0 (lr 0), parameters
                  moved by step 1, frozen BatchNorm stats, one log-mel
                  and two ctc_loss launches a step, no int4, no sync from
-                 the port's code or from any CTC loss
+                 the port's code or from any CTC loss; then
+                 train/fit_report.py over the v1 clips up to
+                 FIT_REPORT_MAX_S from the trained checkpoint: one
+                 ctc_loss launch a batch, finite losses
   16. train vs   one step on a fixed v1 batch (dropout 0, no SpecAugment)
       plain      with the log-mel kernel and with the plain log-mel, f32 and
                  bf16 compute: |Δ loss| and the largest per-leaf
                  max|Δg|/max|g|, in f32 gated by the same deltas of the
                  plain step with ±MEL_TOL noise on its log-mel (bf16
-                 printed); then one bf16 step under torch.profiler
+                 printed); the plain step run twice bitwise equal in both;
+                 then one bf16 step under torch.profiler
   17. distill    train_distill: student the dequantized champion, teacher
                  champion-int4 on the int4 kernel, DISTILL_STEPS steps over
                  distill_batches(v1): KL, auxiliary CTC, step ms, syncs as
@@ -311,6 +317,7 @@ WS_CLIENTS = 2
 CHAMPION = ROOT / "exports" / "champion-int4"
 TRAIN_STEPS = 6        # train.finetune's recipe, steps at lr 0 .. 5·3e-5/100
 DISTILL_STEPS = 4
+FIT_REPORT_MAX_S = 8.0  # train/fit_report.py on the card: v1's clips in the 8 s bucket
 GRAD_FLOOR = 1e-3      # train vs plain: leaves under this share of the largest gradient
                        # hold rounding noise and are not compared
 SAME_WEIGHTS_KL = 1e-3  # KL(teacher || student) per valid frame on full clips when both
@@ -409,6 +416,8 @@ CTC_GRAD_TOL = 1e-4   # loss relative, each row's gradient max|Δ| over its max|
 # bucket's density, 102 labels in 800 frames. Then train.phoneme's batches
 # (phoneme_corpus_batches over v1, V 70: its pads and longest rows; 160 s at the 64 s
 # bucket's density, 343 in 800). Read from v1 with those generators over 400 batches.
+# Last, a phoneme batch past 1,023 labels: a fast reciter's ~9.4 phonemes a second
+# inside the 160 s bucket (row 0 1,500 labels, feasible; row 1 1,125, infeasible).
 CTC_LOSS_CASES = (
     ("text 8 s", 16, 100, 1025, 32, 19),
     ("text 12 s", 12, 150, 1025, 48, 41),
@@ -427,6 +436,7 @@ CTC_LOSS_CASES = (
     ("phoneme 48 s", 3, 600, 70, 176, 175),
     ("phoneme 64 s", 2, 800, 70, 352, 343),
     ("phoneme 160 s", 1, 2000, 70, 864, 858),
+    ("phoneme 160 s fast", 2, 2000, 70, 1536, 1500),
 )
 
 
@@ -1160,17 +1170,29 @@ def ctc_loss_bound_ms(b: int, t: int, v: int, enc, lens) -> tuple[float, str, in
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), ops
 
 
+def ctc_loss_kernel(ctc, x, enc, tokens, lens, blank, weight, plan=None):
+    """The loss kernels' two launches, forward and backward (upstream
+    `weight` a row), laid out by `plan` (ops/ctc.py loss_plan's by
+    default): (loss, gradient)."""
+    if plan is None:    # a checkout whose launcher takes no plan (--lattice-times)
+        loss, work = ctc._loss_forward_kernel(x, enc, tokens, lens, blank)
+    else:
+        loss, work = ctc._loss_forward_kernel(x, enc, tokens, lens, blank, plan)
+    return loss, ctc._loss_backward_kernel(x, enc, tokens, lens, blank, weight, *work)
+
+
 def check_ctc_loss(torch, np, ctc, flush, chain_us: float) -> dict:
     """The training loss's kernels at every CTC_LOSS_CASES shape: loss and
     gradient (upstream 1/B a row, the mean) through ops/ctc.py ctc_loss
-    against ctc_loss_plain and ctc_loss_grad_plain (ctc_loss_gate), two
-    kernel runs bitwise equal; forward plus backward timed for the kernels
-    (their two launches), the plain versions and F.ctc_loss (reduction
-    "none", its backward; the library's yardstick, inf on the infeasible
-    row, zeroed); the bound and, beside it, the chain floor: twice (forward
-    and backward) the row's frames at `chain_us` a frame, the lattice's
-    own one-token chain in this run. The JSON entry carries the 8 s text
-    bucket, every shape under `shapes`."""
+    against ctc_loss_plain and ctc_loss_grad_plain (the loss bitwise, the
+    gradient by ctc_loss_gate), two kernel runs bitwise equal; forward plus
+    backward timed for the kernels (their two launches), the plain versions
+    and F.ctc_loss (reduction "none", its backward; the library's
+    yardstick, inf on the infeasible row, zeroed); the bound and, beside
+    it, the chain floor: twice (forward and backward) the row's frames at
+    `chain_us` a frame, the lattice's own one-token chain in this run; the
+    layout each shape took (ops/ctc.py loss_plan). The JSON entry carries
+    the 8 s text bucket, every shape under `shapes`."""
     import torch.nn.functional as F
 
     rows = {}
@@ -1178,10 +1200,10 @@ def check_ctc_loss(torch, np, ctc, flush, chain_us: float) -> dict:
         x, enc, tokens, lens, blank = ctc_loss_case(torch, np, b, t, v, l_pad, l_max,
                                                     SEED + 40 + i)
         weight = torch.full((b,), 1.0 / b, device=DEVICE)
+        plan = ctc.loss_plan(l_pad, b)
 
         def kernel():
-            loss, work = ctc._loss_forward_kernel(x, enc, tokens, lens, blank)
-            return loss, ctc._loss_backward_kernel(x, enc, tokens, lens, blank, weight, *work)
+            return ctc_loss_kernel(ctc, x, enc, tokens, lens, blank, weight, plan)
 
         def plain():
             return (ctc.ctc_loss_plain(x, enc, tokens, lens, blank),
@@ -1195,6 +1217,8 @@ def check_ctc_loss(torch, np, ctc, flush, chain_us: float) -> dict:
         ref_loss, ref_grad = plain()
         torch.cuda.synchronize()
         rel, ratio = ctc_loss_gate(torch, f"ctc loss {label}", loss, grad, ref_loss, ref_grad)
+        if not torch.equal(bits(torch, loss), bits(torch, ref_loss)):
+            raise AssertionError(f"ctc loss {label}: the loss is not bitwise the plain one")
         if not (torch.equal(bits(torch, loss), bits(torch, again[0]))
                 and torch.equal(bits(torch, grad), bits(torch, again[1]))):
             raise AssertionError(f"ctc loss {label}: two kernel runs differ")
@@ -1217,15 +1241,16 @@ def check_ctc_loss(torch, np, ctc, flush, chain_us: float) -> dict:
         need = [int(n) + int((r[1:n] == r[:n - 1]).sum())
                 for r, n in zip(tokens.cpu().numpy(), lens.tolist())]
         infeasible = sum(nd > e for nd, e in zip(need, enc.tolist()))
-        threads = (l_pad + 1 + 31) // 32 * 32
-        print(f"  ctc loss {label:16s} B={b} T={t} V={v} L_pad={l_pad} L_max={l_max} "
-              f"({infeasible} infeasible row(s); a block of {threads} threads a row): "
-              f"loss rel {rel:.3g}, max|Δg|/max|g| {ratio:.3g}, bitwise run to run; "
+        print(f"  ctc loss {label:18s} B={b} T={t} V={v} L_pad={l_pad} L_max={l_max} "
+              f"({infeasible} infeasible row(s); {plan.describe()}): loss bitwise the plain "
+              f"one, max|Δg|/max|g| {ratio:.3g}, bitwise run to run; "
               f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  F.ctc_loss {lib_ms:.4f} ms  "
               f"bound {bound:.5f} ms ({by}; {ops} transcendentals)  chain floor "
-              f"{floor_ms:.4f} ms (2 x {t_max} frames x {chain_us:.4f} us)", flush=True)
+              f"{floor_ms:.4f} ms (2 x {t_max} frames x {chain_us:.4f} us; kernel "
+              f"{ms / floor_ms:.2f}x)", flush=True)
         rows[label] = {"label": label, "b": b, "t": t, "v": v, "l_pad": l_pad, "l_max": l_max,
-                       "infeasible_rows": infeasible, "threads": threads,
+                       "infeasible_rows": infeasible, "variant": plan.variant,
+                       "plan": dataclasses.asdict(plan),
                        "loss_rel_err": rel, "grad_ratio": ratio, "max_abs_err": err,
                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": bound, "bound_by": by, "transcendentals": ops,
@@ -1240,6 +1265,7 @@ def check_ctc_loss(torch, np, ctc, flush, chain_us: float) -> dict:
         "loss_rel_err": max(r["loss_rel_err"] for r in rows.values()),
         "grad_ratio": max(r["grad_ratio"] for r in rows.values()),
         **{k: head[k] for k in keys}, "shape": CTC_LOSS_CASES[0][0],
+        "variants": {label: r["variant"] for label, r in rows.items()},
         "shapes": list(rows.values()),
     }
 
@@ -2132,6 +2158,34 @@ def train_phase(torch, np, kernels, ckpt_dir: Path) -> dict:
             "ctc_loss_launches": sum(s["launches"]["ctc_loss"] for s in steps)}
 
 
+def fit_report_phase(torch, kernels, checkpoint: Path) -> dict:
+    """train/fit_report.py's corpus_fit on the card: the train phase's
+    checkpoint over the v1 clips up to FIT_REPORT_MAX_S seconds, in its
+    bucketed batches under inference_mode, the loss through the CTC loss
+    kernel. Counters zeroed just before and read just after: one ctc_loss
+    launch a batch (one forward, no backward), as many as the batches'
+    log-mel launches; every row's loss finite and positive."""
+    from tilawa_tpu_torch.train.fit_report import corpus_fit
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    rows = corpus_fit(str(checkpoint), ("v1",), max_audio_s=FIT_REPORT_MAX_S, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    losses = [r["loss"] for r in rows]
+    print(f"  fit_report over {len(rows)} v1 clips up to {FIT_REPORT_MAX_S:g} s in {wall:.2f} s: "
+          f"launches {launches}; loss min {min(losses):.3f} max {max(losses):.3f}; worst "
+          f"{rows[0]['id']}", flush=True)
+    if not rows or launches["ctc_loss"] < 1 or launches["ctc_loss"] != launches["log_mel"]:
+        raise AssertionError(f"fit_report: want one ctc_loss and one log-mel launch a batch, "
+                             f"got {launches} over {len(rows)} clips")
+    if not all(0 < x < float("inf") for x in losses):
+        raise AssertionError(f"fit_report: a loss is not finite and positive: {losses}")
+    return {"clips": len(rows), "launches": launches, "wall_s": wall}
+
+
 def _step_loss(torch, model, batch, generator):
     """One training step's forward, CTC loss and backward (frozen BatchNorm,
     the model's own dropout and SpecAugment), no update; the loss."""
@@ -2213,8 +2267,9 @@ def train_vs_plain(torch, np) -> dict:
     in f32, where the step is smooth in its features; in bf16 any change of
     the features flips roundings through the 17 blocks, so kernel and noise
     deltas come out alike whatever the size of the change: printed, not
-    gated. The plain step run twice gives the floor (0 where the step is
-    bitwise repeatable). The noisy run's features come from hooks on its own
+    gated. The plain step run twice must be bitwise equal, loss and every
+    gradient leaf, in both types (its deltas, the floor, read 0). The
+    noisy run's features come from hooks on its own
     model (noisy_features): the plain log-mel of its audio plus the noise,
     then the frontend's normalization. Then one bf16 kernel step under
     torch.profiler."""
@@ -2254,10 +2309,16 @@ def train_vs_plain(torch, np) -> dict:
         tol = _step_delta(runs["plain + noise"], runs["plain"])
         tag = str(dtype).removeprefix("torch.")
         print(f"  {tag}: loss {runs['plain'][0]:.5f}", flush=True)
-        for what, (dl, dg, where) in (("kernel vs plain", kernel), ("plain vs plain", floor),
+        for what, (dl, dg, where) in (("kernel vs plain", kernel), ("plain again vs plain", floor),
                                       (f"plain + ±{MEL_TOL} log-mel noise vs plain", tol)):
             print(f"    {what}: |Δ loss| {dl:.4g}, largest per-leaf max|Δg|/max|g| {dg:.4g} "
                   f"({where})", flush=True)
+        # the step is bitwise repeatable (C.10): every leaf, however small
+        (la, ga), (lb, gb) = runs["plain again"], runs["plain"]
+        moved = [n for n in ga if not torch.equal(bits(torch, ga[n]), bits(torch, gb[n]))]
+        if la != lb or moved:
+            raise AssertionError(f"{tag}: the plain step run twice differs (loss {la} vs {lb}; "
+                                 f"{len(moved)} gradient leaves, e.g. {moved[:4]})")
         out[tag] = {"d_loss": kernel[0], "d_grad": kernel[1], "tol_loss": tol[0],
                     "tol_grad": tol[1], "floor_loss": floor[0], "floor_grad": floor[1]}
     f32 = out["float32"]
@@ -3662,12 +3723,14 @@ def run(bundles: str | None = None) -> int:
             trained = train_phase(torch, np, kernels, Path(tmp) / "finetune")
             entries[1]["train_launches"] = trained["log_mel_launches"]
             entries[4]["launches"] = trained["ctc_loss_launches"]
+            fit = fit_report_phase(torch, kernels, trained["checkpoint"])
         with phase("train vs plain"):
             versus = train_vs_plain(torch, np)
         with phase("distill"):
             distilled = distill_phase(torch, np, kernels)
             entries[0]["train_launches"] = distilled["int4_launches"]
-            entries[4]["path_launches"] = {"distill": distilled["ctc_loss_launches"]}
+            entries[4]["path_launches"] = {"distill": distilled["ctc_loss_launches"],
+                                           "fit_report": fit["launches"]["ctc_loss"]}
         with phase("export"):
             export_phase(torch, kernels, trained["checkpoint"], Path(tmp) / "bundle", manifest)
 
@@ -3898,6 +3961,90 @@ def lattice_plans(ctc, l_pad: int, c: int, b: int, t_valid) -> list:
     return plans
 
 
+def loss_plans(ctc, l_pad: int, b: int) -> list:
+    """loss_plan's own layout for (L_pad, B) first, then each other layout
+    it accepts there: one warp, one block, and a cluster of each size (a
+    block of one warp is the warp layout)."""
+    plans = [ctc.loss_plan(l_pad, b)]
+    forced = [("warp", None), ("group", None)] + [("cluster", c) for c in ctc.LOSS_CLUSTERS]
+    for variant, cluster in forced:
+        try:
+            plan = ctc.loss_plan(l_pad, b, variant=variant, cluster=cluster)
+        except ValueError:      # the layout cannot hold these states
+            continue
+        if all((p.warps, p.cluster) != (plan.warps, plan.cluster) for p in plans):
+            plans.append(plan)
+    return plans
+
+
+def loss_layouts(torch, np, ctc, flush) -> list:
+    """Every CTC_LOSS_CASES shape (check_ctc_loss's inputs) under each layout
+    loss_plans gives: the loss bitwise the plain one, the gradient gated
+    against the plain one (ctc_loss_gate) and bitwise the default layout's,
+    the kernels' forward + backward ms, and each launch alone (forward:
+    normalizer and alpha chain; backward: adjoint chain and epilogue). A
+    layout that fails to launch or to match fails the run."""
+    sweep = []
+    for i, (label, b, t, v, l_pad, l_max) in enumerate(CTC_LOSS_CASES):
+        x, enc, tokens, lens, blank = ctc_loss_case(torch, np, b, t, v, l_pad, l_max,
+                                                    SEED + 40 + i)
+        weight = torch.full((b,), 1.0 / b, device=DEVICE)
+        ref_loss = ctc.ctc_loss_plain(x, enc, tokens, lens, blank)
+        ref_grad = ctc.ctc_loss_grad_plain(x, enc, tokens, lens, blank, weight)
+        first = None
+        for plan in loss_plans(ctc, l_pad, b):
+            def run(plan=plan):
+                return ctc_loss_kernel(ctc, x, enc, tokens, lens, blank, weight, plan)
+            loss, grad = run()
+            torch.cuda.synchronize()
+            what = f"ctc loss {label} {plan.describe()}"
+            _rel, ratio = ctc_loss_gate(torch, what, loss, grad, ref_loss, ref_grad)
+            if not torch.equal(bits(torch, loss), bits(torch, ref_loss)):
+                raise AssertionError(f"{what}: the loss is not bitwise the plain one")
+            first = first or (loss, grad)
+            if not torch.equal(bits(torch, grad), bits(torch, first[1])):
+                raise AssertionError(f"{what}: the gradient differs from the default layout's")
+            ms = time_cuda(torch, run, flush)
+            _loss, work = ctc._loss_forward_kernel(x, enc, tokens, lens, blank, plan)
+            fwd_ms = time_cuda(torch, lambda: ctc._loss_forward_kernel(x, enc, tokens, lens,
+                                                                      blank, plan), flush)
+            bwd_ms = time_cuda(torch, lambda: ctc._loss_backward_kernel(
+                x, enc, tokens, lens, blank, weight, *work), flush)
+            print(f"  ctc loss {label:18s} {plan.describe()}: loss bitwise, gradient "
+                  f"{ratio:.3g} of max|g|; {ms:.4f} ms (forward {fwd_ms:.4f}, backward "
+                  f"{bwd_ms:.4f})", flush=True)
+            sweep.append({"label": label, "plan": dataclasses.asdict(plan), "ms": ms,
+                          "forward_ms": fwd_ms, "backward_ms": bwd_ms, "grad_ratio": ratio})
+        del x, ref_grad, first
+    return sweep
+
+
+def loss_times(torch, np, ctc, flush) -> dict:
+    """The loss kernels of the port imported as `ctc` (another checkout's,
+    for --lattice-times) at every CTC_LOSS_CASES shape with that port's
+    default layout: loss and gradient gated against that port's plain
+    versions, forward + backward ms; None where that port does not take
+    the shape (labels past its limit)."""
+    times = {}
+    for i, (label, b, t, v, l_pad, l_max) in enumerate(CTC_LOSS_CASES):
+        x, enc, tokens, lens, blank = ctc_loss_case(torch, np, b, t, v, l_pad, l_max,
+                                                    SEED + 40 + i)
+        try:
+            ctc._loss_layout(label, x, enc, tokens, lens, blank)
+        except ValueError:
+            times[label] = None
+            continue
+        weight = torch.full((b,), 1.0 / b, device=DEVICE)
+        loss, grad = ctc_loss_kernel(ctc, x, enc, tokens, lens, blank, weight)
+        ctc_loss_gate(torch, f"ctc loss {label}", loss, grad,
+                      ctc.ctc_loss_plain(x, enc, tokens, lens, blank),
+                      ctc.ctc_loss_grad_plain(x, enc, tokens, lens, blank, weight))
+        times[label] = time_cuda(torch, lambda: ctc_loss_kernel(ctc, x, enc, tokens, lens,
+                                                                blank, weight), flush)
+        del x, grad
+    return times
+
+
 def lattice_inputs(torch, np, ctc, label, t, v, c, l_pad, t_valids, lengths, seed) -> tuple:
     """One sweep shape on the card: (log-probs [B, T, V], t_valid as the
     wrapper takes it, tokens, lengths, the plain version's scores [B, C]);
@@ -3935,11 +4082,12 @@ def device_line(torch) -> tuple[str, int, str]:
 
 
 def run_lattice_sweep() -> int:
-    """--lattice: the build, the lattice's kernel-vs-plain check at every
-    shape (check_lattice), then every shape under each layout lattice_plan
-    accepts there (lattice_plans): scores bitwise the plain version's, the
-    kernel's ms and us a frame. A layout that fails to build, to launch or
-    to match fails the run."""
+    """--lattice: the build, the CTC kernels' kernel-vs-plain checks at every
+    shape (check_lattice, check_ctc_loss), then every lattice shape under
+    each layout lattice_plan accepts there (lattice_plans): scores bitwise
+    the plain version's, the kernel's ms and us a frame; then every loss
+    shape under each layout loss_plan accepts (loss_layouts). A layout that
+    fails to build, to launch or to match fails the run."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3999,8 +4147,10 @@ def run_lattice_sweep() -> int:
                 sweep.append({"label": label, "plan": dataclasses.asdict(plan), "ms": ms,
                               "us_per_frame": us})
             del lp, ref
+    with phase("loss layouts"):
+        loss_sweep = loss_layouts(torch, np, ctc, flush)
     print(json.dumps({"lattice": entry, "ctc_loss": loss_entry, "sweep": sweep,
-                      "clocks": clocks, "device": kind,
+                      "loss_sweep": loss_sweep, "clocks": clocks, "device": kind,
                       "count": count, "nvidia_smi": smi}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
@@ -4009,10 +4159,12 @@ def run_lattice_sweep() -> int:
 
 
 def run_lattice_times(root: str) -> int:
-    """--lattice-times ROOT: the lattice kernel of the port in checkout ROOT
-    (its ops/ctc.py, built from its own sources) at every lattice_sweep_cases
-    shape with that port's default layout: scores bitwise that port's plain
-    version, kernel ms (CUDA events, L2 flushed). One JSON line."""
+    """--lattice-times ROOT: the CTC kernels of the port in checkout ROOT
+    (its ops/ctc.py, built from its own sources) with that port's default
+    layouts: the lattice at every lattice_sweep_cases shape, scores bitwise
+    that port's plain version, and the training loss at every
+    CTC_LOSS_CASES shape (loss_times); kernel ms (CUDA events, L2 flushed).
+    One JSON line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4040,19 +4192,22 @@ def run_lattice_times(root: str) -> int:
             raise AssertionError(f"lattice {label} in {root}: not bitwise its plain version")
         times[label] = time_cuda(torch, run, flush)
         del lp, ref
-    print(json.dumps({"root": root, "ms": times,
+    loss = loss_times(torch, np, ctc, flush)
+    print(json.dumps({"root": root, "ms": times, "loss_ms": loss,
                       "source": str(Path(ctc.__file__).resolve())}), flush=True)
     return 0
 
 
 def run_lattice_compare(roots: str) -> int:
-    """--lattice-compare ROOT,...: this checkout's lattice kernel beside
-    each other checkout's (a `git archive` of another commit, unpacked in
-    an ignored directory) at every lattice_sweep_cases shape, all in this
-    one call: --lattice-times in a child process a checkout, in the order
-    this, ROOT..., then reversed, so each is timed twice, first and last
-    around the others. Prints each shape's two times a checkout and their
-    ratio to this checkout's, then the nvidia-smi line and the ok line."""
+    """--lattice-compare ROOT,...: this checkout's CTC kernels beside each
+    other checkout's (a `git archive` of another commit, unpacked in an
+    ignored directory) at every lattice_sweep_cases shape and every
+    CTC_LOSS_CASES shape, all in this one call: --lattice-times in a child
+    process a checkout, in the order this, ROOT..., then reversed, so each
+    is timed twice, first and last around the others. Prints each shape's
+    two times a checkout and their ratio to this checkout's (null where a
+    checkout does not take the shape), then the nvidia-smi line and the ok
+    line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4072,16 +4227,22 @@ def run_lattice_compare(roots: str) -> int:
             print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr, flush=True)
             print(f"chip_smoke: --lattice-times {r} failed", file=sys.stderr, flush=True)
             return 1
-        runs[r].append(json.loads(proc.stdout.strip().splitlines()[-1])["ms"])
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[r].append({**line["ms"], **{f"loss {k}": ms
+                                         for k, ms in line.get("loss_ms", {}).items()}})
     mine = runs[str(ROOT)]
     table = {}
     for label in mine[0]:
         base = min(m[label] for m in mine)
-        row = {r: [m[label] for m in runs[r]] for r in order}
+        row = {r: [m.get(label) for m in runs[r]] for r in order}
         table[label] = row
-        print(f"  {label:15s} " + "  ".join(
-            f"{Path(r).name}: {row[r][0]:.4f} / {row[r][1]:.4f} ms "
-            f"({min(row[r]) / base:.3f}x this)" for r in order), flush=True)
+
+        def shown(times):
+            if None in times:
+                return "- (not taken)"
+            return f"{times[0]:.4f} / {times[1]:.4f} ms ({min(times) / base:.3f}x this)"
+        print(f"  {label:24s} " + "  ".join(f"{Path(r).name}: {shown(row[r])}" for r in order),
+              flush=True)
     print(json.dumps({"lattice_compare": table, "roots": order, "device": kind,
                       "nvidia_smi": smi}), flush=True)
     print(smi, flush=True)

@@ -218,17 +218,17 @@ def test_gradcheck_f64():
 
 
 def test_train_paths_call_the_op():
-    """ctc_losses takes host arrays and tensors alike and is the op;
-    ctc_loss_optax is its plain version under its old name; the op runs
-    under inference_mode (train/fit_report.py)."""
+    """ctc_losses takes host arrays and tensors alike and is the op; on a
+    CPU tensor the op is ctc_loss_plain; the op runs under inference_mode
+    (train/fit_report.py)."""
     rng = np.random.default_rng(8)
     lp = torch.tensor(_log_probs(rng, (3, 12, 10)))
     enc, tlens = np.array([12, 9, 4], np.int32), np.array([3, 2, 5], np.int32)
     tokens, _ = _labels(rng, [3, 2, 5], 6, 10, 9)
     ref = ctc.ctc_loss(lp, *map(torch.from_numpy, (enc, tokens, tlens)), 9)
     assert torch.equal(ttrain.ctc_losses(lp, enc, tokens, tlens, 9), ref)
-    assert torch.equal(ttrain.ctc_loss_optax(lp, *map(torch.from_numpy, (enc, tokens, tlens)),
-                                             9), ref)
+    assert torch.equal(ctc.ctc_loss_plain(lp, *map(torch.from_numpy, (enc, tokens, tlens)), 9),
+                       ref)
     with torch.inference_mode():
         assert torch.equal(ttrain.ctc_losses(lp, torch.from_numpy(enc), tokens, tlens, 9), ref)
     assert float(ref[2]) > 1e4                 # 5 labels in 4 frames: optax's finite loss
@@ -271,8 +271,116 @@ def test_no_port_file_calls_torch_ctc_loss():
                          ids=[c[0] for c in __import__("chip_smoke").CTC_LOSS_CASES])
 def test_training_shapes_fit_one_block(case):
     """Every training bucket's labels (chip_smoke.CTC_LOSS_CASES: v1's
-    longest, text and phonemes) fit the kernels' one block a row, and the
-    vocabulary their epilogue."""
-    _label, _b, _t, v, l_pad, l_max = case
-    assert l_max <= l_pad and l_pad + 1 <= ctc.CTC_LOSS_MAX_STATES
+    longest, text and phonemes, and a phoneme row past 1,023 labels) have a
+    layout within the card's limits (a block of at most 1,024 threads, a
+    cluster of at most 16 CTAs, the grid) that holds their N + 1 state
+    pairs, one a thread; the vocabulary fits the epilogue; the plan is a
+    pure function of (N, B)."""
+    _label, b, _t, v, l_pad, l_max = case
+    assert l_max <= l_pad <= ctc.CTC_LOSS_MAX_LABELS
     assert v <= ctc.CTC_LOSS_MAX_VOCAB
+    plan = ctc.loss_plan(l_pad, b)
+    assert plan == ctc.loss_plan(l_pad, b)
+    _fits_the_card(plan, l_pad, b)
+    if l_pad > 1023:
+        assert plan.variant == "cluster"
+
+
+def _fits_the_card(plan, n_pad, b):
+    """The plan's blocks, clusters and grid are within the H100's limits,
+    and its threads hold the N + 1 state pairs."""
+    assert 1 <= plan.warps and 32 * plan.warps <= min(1024, ctc.LOSS_MAX_THREADS)
+    assert plan.cluster in (1, *ctc.LOSS_CLUSTERS) and plan.cluster <= 16
+    assert plan.grid == b * plan.cluster and plan.grid < 2**31
+    if plan.cluster == 1:
+        assert 32 * plan.warps >= n_pad + 1
+        assert plan.variant != "warp" or (plan.warps == 1 and n_pad + 1 <= 32)
+    else:
+        # each CTA a slice of whole warps, the halo warp beside it
+        slice_ = 32 * (plan.warps - 1)
+        assert plan.variant == "cluster" and slice_ >= ctc.LOSS_HALO
+        assert plan.cluster * slice_ >= n_pad + 1
+
+
+@pytest.mark.parametrize("n_pad,b", [(0, 1), (31, 16), (32, 16), (255, 1), (256, 1),
+                                     (511, 2), (1023, 1), (1536, 2), (2047, 1), (4095, 3),
+                                     (ctc.CTC_LOSS_MAX_LABELS, 1)])
+def test_loss_plan_forced_variants(n_pad, b):
+    """Each variant that holds N + 1 state pairs gives a plan within the
+    card's limits, and the same plan for the same arguments; one that
+    cannot hold them raises: one warp past 32 states, one block past 512
+    threads, a cluster past its CTAs' slices."""
+    states = n_pad + 1
+    for variant, cluster in [("warp", None), ("group", None)] + [
+            ("cluster", c) for c in (None, *ctc.LOSS_CLUSTERS)]:
+        holds = {"warp": states <= 32, "group": states <= 512}.get(
+            variant, 32 + max(32, 32 * -(-(-(-states // (cluster or 16))) // 32)) <= 512)
+        if not holds:
+            with pytest.raises(ValueError, match="do not fit"):
+                ctc.loss_plan(n_pad, b, variant=variant, cluster=cluster)
+            continue
+        plan = ctc.loss_plan(n_pad, b, variant=variant, cluster=cluster)
+        assert plan == ctc.loss_plan(n_pad, b, variant=variant, cluster=cluster)
+        assert plan.variant == variant and (cluster is None or plan.cluster == cluster)
+        _fits_the_card(plan, n_pad, b)
+
+
+def test_loss_plan_default_and_limits():
+    """The default layout: one warp up to 32 state pairs, one block up to
+    LOSS_GROUP_WARPS warps, a cluster past that and past one block, of 16
+    CTAs while B rows' CTAs fit one an SM, else of fewer; past
+    CTC_LOSS_MAX_LABELS nothing holds the row; a wrong variant or size
+    raises."""
+    assert ctc.loss_plan(31, 16).variant == "warp"
+    assert ctc.loss_plan(32, 16).variant == "group"
+    assert ctc.loss_plan(32 * ctc.LOSS_GROUP_WARPS - 1, 1).variant == "group"
+    assert ctc.loss_plan(32 * ctc.LOSS_GROUP_WARPS, 1).variant == "cluster"
+    assert ctc.loss_plan(1024, 1).variant == "cluster"
+    assert ctc.loss_plan(1024, 2).cluster == 16 and ctc.loss_plan(1024, 16).cluster == 8
+    assert ctc.loss_plan(1024, 200).cluster == 4      # the smallest that holds 1,025 states
+    with pytest.raises(ValueError, match="do not fit"):
+        ctc.loss_plan(ctc.CTC_LOSS_MAX_LABELS + 1, 1)
+    with pytest.raises(ValueError, match="no variant"):
+        ctc.loss_plan(10, 1, variant="grid")
+    with pytest.raises(ValueError, match="do not fit a cluster of 3"):
+        ctc.loss_plan(100, 1, variant="cluster", cluster=3)
+    with pytest.raises(ValueError, match="rows"):
+        ctc.loss_plan(10, 70000)
+
+
+def _aligned_log_probs(rng, tokens, tlens, t, v, blank):
+    """A trained head's output for these labels: N(0, 2²) logits plus 10 on
+    label k over frames [k t / L, (k + 1) t / L) of each row (the blank on a
+    frame that starts a repeat's second label, as an alignment needs),
+    log_softmax."""
+    logits = rng.standard_normal((len(tokens), t, v)).astype(np.float32) * 2
+    for r, (row, n) in enumerate(zip(tokens, tlens)):
+        for k in range(n):
+            lo, hi = k * t // n, (k + 1) * t // n
+            logits[r, lo:hi, row[k]] += 10
+            if k and row[k] == row[k - 1]:
+                logits[r, lo, row[k]] -= 10
+                logits[r, lo, blank] += 10
+    return np.asarray(jax.nn.log_softmax(jnp.asarray(logits)))
+
+
+def test_rows_past_1023_labels_match_optax():
+    """Two phoneme rows (V 70) past one block's 1,023 labels against 1,300
+    frames: 1,030 labels in all 1,300 frames (feasible) and 1,200 in 1,150
+    (infeasible: optax's finite loss), with repeats; the same tolerances.
+    The log-probs are a trained head's (_aligned_log_probs): under random
+    ones a 1,300-frame row's log-likelihood is thousands of nats (about
+    log V a frame), where an f32 ulp is some 5e-4, so each weight
+    exp(a - out) of the adjoint recursion carries that much rounding in JAX
+    and in the port alike, more than the gradient's bound allows between
+    two orders of the same sums."""
+    rng = np.random.default_rng(1030)
+    v, blank = 70, 69
+    enc = np.array([1300, 1150], np.int32)
+    tokens, tlens = _labels(rng, [1030, 1200], 1200, v, blank, run_rows=(0, 1))
+    need = [n + int(np.sum(r[1:n] == r[:n - 1])) for r, n in zip(tokens, tlens)]
+    assert need[0] <= enc[0] and need[1] > enc[1]
+    lp = _aligned_log_probs(rng, tokens, tlens, 1300, v, blank)
+    rows, _loss, _grad = _jax(lp, enc, tokens, tlens, blank, None)
+    assert rows[0] < 1e3 and rows[1] > 1e5       # feasible; optax's finite infeasible loss
+    _hold(lp, enc, tokens, tlens, blank)

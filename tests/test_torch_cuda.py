@@ -29,9 +29,11 @@ order): equal +inf patterns, finite scores within rtol/atol 1e-5, and the
 same best candidate (argmin) a call; each of its variants (one warp, warp
 group, cluster) also bitwise (`-k lattice`). The training CTC loss
 (`-k ctc_loss`) against its plain version: each row's loss within rel
-1e-5 and its gradient within 1e-4 of its plain max|g| (the same f32
-recursion with IEEE expf/log1pf in the same order, the sums of the softmax
-and of the posteriors in other orders), two runs bitwise equal."""
+1e-5 (bitwise under every layout loss_plan accepts) and its gradient
+within 1e-4 of its plain max|g| (the same f32 recursion with IEEE
+expf/log1pf in the same order, the sums of the softmax and of the
+posteriors in other orders), two runs and a CUDA-graph replay bitwise
+equal. The f32 training step run twice: bitwise equal."""
 
 import dataclasses
 import sys
@@ -719,6 +721,117 @@ def test_ctc_loss_kernel_matches_plain(cuda, case):
     assert kernels.LAUNCHES["ctc_loss"] == 2
 
 
+_LOSS_LAYOUT_CASES = [(case, plan) for case in chip_smoke.CTC_LOSS_CASES
+                      for plan in chip_smoke.loss_plans(ctc, case[4], case[1])]
+
+
+@pytest.mark.parametrize("case,plan", _LOSS_LAYOUT_CASES,
+                         ids=[f"{c[0]}-{p.variant}{p.cluster}" for c, p in _LOSS_LAYOUT_CASES])
+def test_ctc_loss_layouts_match_plain(cuda, case, plan):
+    """Every training shape under each layout loss_plan accepts there (one
+    warp, one block, a cluster of each size that holds the row): the loss
+    bitwise the plain one, the gradient gated against the plain one and
+    bitwise the default layout's; one launch forward and one backward."""
+    _label, b, t, v, l_pad, l_max = case
+    x, enc, tokens, lens, blank = chip_smoke.ctc_loss_case(torch, np, b, t, v, l_pad, l_max, 11)
+    weight = torch.full((b,), 1.0 / b, device=cuda)
+    kernels.reset_launches()
+    loss, grad = chip_smoke.ctc_loss_kernel(ctc, x, enc, tokens, lens, blank, weight, plan)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctc_loss"] == 2
+    ref_loss = ctc.ctc_loss_plain(x, enc, tokens, lens, blank)
+    ref_grad = ctc.ctc_loss_grad_plain(x, enc, tokens, lens, blank, weight)
+    chip_smoke.ctc_loss_gate(torch, case[0], loss, grad, ref_loss, ref_grad)
+    assert torch.equal(loss.view(torch.int32), ref_loss.view(torch.int32))
+    _loss, default = chip_smoke.ctc_loss_kernel(ctc, x, enc, tokens, lens, blank, weight)
+    assert torch.equal(grad.view(torch.int32), default.view(torch.int32))
+
+
+def test_ctc_loss_rows_past_one_block(cuda):
+    """Labels padded to 2,047 (rows of 2,047, 1,100 and 0 labels, one of
+    them 3 frames short of its labels) through the op: a cluster layout,
+    the loss bitwise the plain one, the gradient gated."""
+    rng = np.random.default_rng(2047)
+    v, blank, t, n = 70, 69, 2600, 2047
+    x = torch.from_numpy(rng.standard_normal((3, t, v)).astype(np.float32)).to(cuda)
+    tokens = torch.from_numpy(rng.integers(0, blank, (3, n)).astype(np.int32)).to(cuda)
+    lens = torch.tensor([n, 1100, 0], dtype=torch.int32, device=cuda)
+    need = [int(k) + int((r[1:k] == r[:k - 1]).sum()) if k else 0 for r, k in
+            zip(tokens.cpu().numpy(), lens.tolist())]
+    enc = torch.tensor([t, need[1] - 3, 40], dtype=torch.int32, device=cuda)
+    assert ctc.loss_plan(n, 3).variant == "cluster"
+    weight = torch.tensor([0.5, 1.0, 2.0], device=cuda)
+    xg = x.clone().requires_grad_()
+    kernels.reset_launches()
+    loss = ctc.ctc_loss(xg, enc, tokens, lens, blank)
+    (grad,) = torch.autograd.grad(loss, xg, weight)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctc_loss"] == 2
+    ref_loss = ctc.ctc_loss_plain(x, enc, tokens, lens, blank)
+    ref_grad = ctc.ctc_loss_grad_plain(x, enc, tokens, lens, blank, weight)
+    chip_smoke.ctc_loss_gate(torch, "2,047 labels", loss.detach(), grad, ref_loss, ref_grad)
+    assert torch.equal(loss.detach().view(torch.int32), ref_loss.view(torch.int32))
+
+
+def test_ctc_loss_replays_in_a_cuda_graph(cuda):
+    """Forward and backward captured in one CUDA graph (no allocation in a
+    launcher, no host sync) replay bitwise what eager calls give, for the
+    default layout at a block and at a cluster shape."""
+    for case in (chip_smoke.CTC_LOSS_CASES[0], chip_smoke.CTC_LOSS_CASES[-1]):
+        _label, b, t, v, l_pad, l_max = case
+        x, enc, tokens, lens, blank = chip_smoke.ctc_loss_case(torch, np, b, t, v, l_pad,
+                                                               l_max, 12)
+        weight = torch.full((b,), 1.0 / b, device=cuda)
+        xg = x.clone().requires_grad_()
+
+        def step():
+            loss = ctc.ctc_loss(xg, enc, tokens, lens, blank)
+            (grad,) = torch.autograd.grad(loss, xg, weight)
+            return loss.detach(), grad
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()                      # warm-up: builds and loads the library
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            loss_g, grad_g = step()
+        eager_loss, eager_grad = step()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(loss_g.view(torch.int32), eager_loss.view(torch.int32)), case[0]
+        assert torch.equal(grad_g.view(torch.int32), eager_grad.view(torch.int32)), case[0]
+
+
+def test_f32_train_step_is_bitwise_repeatable(cuda):
+    """Two runs of one full-width f32 training step (the dequantized
+    champion, plain log-mel, dropout 0, no SpecAugment) on one v1 batch:
+    the loss and every gradient leaf bitwise equal."""
+    from tilawa_tpu_torch.models.convert import load_into
+    from tilawa_tpu_torch.models.fastconformer import FastConformerCTC
+    from tilawa_tpu_torch.train.checkpoint import load_variables
+    from tilawa_tpu_torch.train.data import bucketed_corpus_batches
+    from tilawa_tpu_torch.train.quantize import dequantize_variables, dequantized_config
+    from tilawa_tpu_torch.train.train import step_generator
+
+    cfg, variables = load_variables(chip_smoke.CHAMPION)
+    variables = dequantize_variables(variables)
+    cfg = dequantized_config(cfg, dtype=torch.float32, use_pallas=False, dropout=0.0,
+                             sa_freq_masks=0, sa_time_masks=0)
+    batch = next(bucketed_corpus_batches(("v1",), seed=1, augment=False))
+    runs = []
+    for _ in range(2):
+        model = load_into(FastConformerCTC(cfg), variables).to(cuda)
+        runs.append(chip_smoke._one_step(torch, model, batch,
+                                         step_generator(0, 1, torch.device(cuda))))
+        del model
+    (la, ga), (lb, gb) = runs
+    assert la == lb
+    moved = [n for n in ga if not torch.equal(ga[n].view(torch.int32), gb[n].view(torch.int32))]
+    assert not moved, moved[:5]
+
+
 def test_ctc_loss_kernel_edge_rows(cuda):
     """L = 0, a last label equal to the padding token, a row that fills the
     padded width, enc_len 0 and past T, a label equal to its neighbour,
@@ -791,8 +904,8 @@ def test_ctc_loss_makes_no_host_sync(cuda):
 
 def test_ctc_loss_raises_on_what_it_does_not_take(cuda):
     """A wrong dtype, lengths on another device, a DTensor-like input, labels
-    padded past one block, a vocabulary past the epilogue's: raised before
-    any launch."""
+    padded past what 16 CTAs hold, a vocabulary past the epilogue's: raised
+    before any launch."""
     x = torch.zeros((2, 5, 4), device=cuda)
     enc = torch.tensor([5, 5], dtype=torch.int32, device=cuda)
     tokens = torch.ones((2, 3), dtype=torch.int32, device=cuda)
@@ -804,8 +917,9 @@ def test_ctc_loss_raises_on_what_it_does_not_take(cuda):
         ctc.ctc_loss(x, enc.cpu(), tokens, lens, 3)
     with pytest.raises(TypeError, match="DTensor"):
         ctc.ctc_loss(type("Sharded", (), {"to_local": None})(), enc, tokens, lens, 3)
-    with pytest.raises(ValueError, match="one block"):
-        ctc.ctc_loss(x, enc, torch.ones((2, 1024), dtype=torch.int32, device=cuda), lens, 3)
+    with pytest.raises(ValueError, match="do not fit"):
+        ctc.ctc_loss(x, enc, torch.ones((2, ctc.CTC_LOSS_MAX_LABELS + 1), dtype=torch.int32,
+                                        device=cuda), lens, 3)
     with pytest.raises(ValueError, match="classes"):
         ctc.ctc_loss(torch.zeros((2, 5, 9000), device=cuda), enc, tokens, lens, 3)
     with pytest.raises(ValueError, match="blank"):

@@ -577,9 +577,12 @@ class FastConformerCTC(nn.Module):
     def __init__(self, cfg: FastConformerConfig):
         super().__init__()
         # The reference runs f32 convolutions and products in full f32;
-        # PyTorch's cuDNN default for f32 convolutions is TF32. Process-wide.
+        # PyTorch's cuDNN default for f32 convolutions is TF32. And its
+        # jitted step is bitwise repeatable, where cuDNN may pick a weight
+        # gradient algorithm that sums with atomics. Process-wide.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
         self.cfg = cfg
         for name, table in mel_tables()._asdict().items():
             self.register_buffer(f"mel_{name}", table, persistent=False)

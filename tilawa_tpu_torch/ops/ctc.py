@@ -20,9 +20,12 @@ Scores are length-normalized NLL: score[c] = -log p(tokens_c | logprobs) / L_c,
 gradient (the JAX package trains through jax.value_and_grad of it: an XLA
 scan, no Pallas kernel). It is an autograd Function (CTCLoss): for a CUDA
 tensor its forward and its backward each launch the hand-written kernels of
-csrc/ctc_loss.cu once; for a CPU tensor they run the plain versions,
-`ctc_loss_plain` (optax's recursion, a Python loop over frames) and
-`ctc_loss_grad_plain` (the same recursion's adjoints, back over the frames).
+csrc/ctc_loss.cu once, each row's chains laid out by `loss_plan` from
+(N, B): one warp a row ("warp"), a group of warps on a named barrier
+("group") or a thread-block cluster whose CTAs hold slices of the row
+("cluster"); for a CPU tensor they run the plain versions, `ctc_loss_plain`
+(optax's recursion, a Python loop over frames) and `ctc_loss_grad_plain`
+(the same recursion's adjoints, back over the frames).
 """
 
 from __future__ import annotations
@@ -342,8 +345,87 @@ def ctc_forward_scores_batch(
 # log_epsilon terms of an infeasible row cancel inside each weight's a - out,
 # one lae at a time, as in autodiff.
 
-CTC_LOSS_MAX_STATES = 1024   # csrc/ctc_loss.cu: one state pair a thread, one block a row
-CTC_LOSS_MAX_VOCAB = 8192    # its gradient epilogue holds a frame's V posteriors in shared memory
+# Limits of csrc/ctc_loss.cu's layouts: one state pair (phi[k], emit[k]) a
+# thread; a block of at most 512 threads (a group's, or a cluster CTA's with
+# its halo warp of 32 states), a cluster of 2-16 CTAs; its gradient epilogue
+# holds a frame's V posteriors in shared memory.
+LOSS_MAX_THREADS = 512
+LOSS_HALO = 32
+LOSS_CLUSTERS = (2, 4, 8, 16)
+CTC_LOSS_MAX_LABELS = LOSS_CLUSTERS[-1] * (LOSS_MAX_THREADS - LOSS_HALO) - 1
+CTC_LOSS_MAX_VOCAB = 8192
+# The default plan, set from chip_smoke.py --lattice's sweep of every layout
+# at every training shape on the H100: a group a row up to LOSS_GROUP_WARPS
+# warps (it won at every shape of up to 4 warps, and lost to the clusters at
+# every shape of 6 or more); past that the largest cluster whose CTAs for
+# all B rows fit one a streaming multiprocessor (within 1% of the fastest
+# cluster at every shape), or the smallest cluster that holds the row.
+LOSS_GROUP_WARPS = 4
+LOSS_CLUSTER_CTAS = 132
+
+
+@dataclass(frozen=True)
+class LossPlan:
+    """The loss kernels' layout of a launch: `warps` warps a block (a
+    cluster CTA's, its halo's included), `cluster` CTAs a row, `grid`
+    blocks."""
+    variant: str           # "warp", "group" or "cluster"
+    warps: int
+    cluster: int
+    grid: int
+
+    def describe(self) -> str:
+        where = (f"{self.cluster} CTAs of {self.warps} warps a row, a halo's included"
+                 if self.cluster > 1 else f"a block of {self.warps} warp(s) a row")
+        return f"{self.variant} ({where}, grid {self.grid})"
+
+
+def _loss_slice(n_pad: int, cluster: int) -> int:
+    """A cluster CTA's states of a row of n_pad labels: ceil((N + 1) / C) in
+    whole warps, at least a halo's (csrc/ctc_loss.cu slice_states)."""
+    return max(32 * _warps_for(-(-(n_pad + 1) // cluster)), LOSS_HALO)
+
+
+def loss_plan(n_pad: int, b: int, variant: str | None = None,
+              cluster: int | None = None) -> LossPlan:
+    """The training loss kernels' layout for B rows of labels padded to
+    n_pad, a pure function of these host shapes (no length is read: no host
+    sync). By default "warp" where the N + 1 state pairs fit one warp,
+    "group" (one block a row) up to LOSS_GROUP_WARPS warps, else "cluster":
+    the largest of LOSS_CLUSTERS that holds the row with B times its CTAs
+    at most LOSS_CLUSTER_CTAS, or the smallest that holds it. `variant` (and
+    for "cluster" `cluster`, its CTAs a row) asks for one of them. Raises
+    ValueError where the layout cannot hold the states."""
+    if n_pad < 0 or b < 0:
+        raise ValueError(f"ctc_loss: N = {n_pad}, B = {b} must not be negative")
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"ctc_loss: B = {b} rows do not fit one launch")
+    states = n_pad + 1
+    if variant is None:
+        variant = ("warp" if states <= 32 else
+                   "group" if _warps_for(states) <= LOSS_GROUP_WARPS else "cluster")
+    if variant == "warp":
+        if states > 32:
+            raise ValueError(f"ctc_loss: labels padded to {n_pad} do not fit one warp")
+        return LossPlan("warp", 1, 1, b)
+    if variant == "group":
+        warps = _warps_for(states)
+        if 32 * warps > LOSS_MAX_THREADS:
+            raise ValueError(f"ctc_loss: labels padded to {n_pad} do not fit one block")
+        return LossPlan("group", warps, 1, b)
+    if variant != "cluster":
+        raise ValueError(f"ctc_loss: no variant {variant!r}")
+    fitting = [c for c in LOSS_CLUSTERS
+               if LOSS_HALO + _loss_slice(n_pad, c) <= LOSS_MAX_THREADS]
+    if cluster is None:
+        if not fitting:
+            raise ValueError(f"ctc_loss: labels padded to {n_pad} do not fit "
+                             f"{LOSS_CLUSTERS[-1]} CTAs (at most {CTC_LOSS_MAX_LABELS})")
+        cluster = max((c for c in fitting if b * c <= LOSS_CLUSTER_CTAS), default=fitting[0])
+    elif cluster not in fitting:
+        raise ValueError(f"ctc_loss: labels padded to {n_pad} do not fit a cluster of "
+                         f"{cluster} CTAs (sizes {LOSS_CLUSTERS})")
+    return LossPlan("cluster", 1 + _loss_slice(n_pad, cluster) // 32, cluster, b * cluster)
 
 
 def _loss_lattice(x, enc_len, tokens, blank_id: int, log_epsilon: float) -> dict:
@@ -456,8 +538,8 @@ def ctc_loss_grad_plain(x, enc_len, tokens, token_lens, blank_id: int,
 
 
 _LOSS_FWD_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
-_LOSS_BWD_ARGTYPES = _LOSS_FWD_ARGTYPES[:11] + [ctypes.c_void_p] * 8
+                      + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6)
+_LOSS_BWD_ARGTYPES = _LOSS_FWD_ARGTYPES[:13] + [ctypes.c_void_p] * 8
 
 
 def _loss_layout(what, x, enc_len, tokens, token_lens, blank_id: int) -> None:
@@ -466,9 +548,10 @@ def _loss_layout(what, x, enc_len, tokens, token_lens, blank_id: int) -> None:
         raise ValueError(f"{what}: x must be float32 on the card, got {x.dtype}")
     if not 0 <= blank_id < x.shape[-1]:
         raise ValueError(f"{what}: blank {blank_id} outside the vocabulary")
-    if tokens.shape[1] + 1 > CTC_LOSS_MAX_STATES:
-        raise ValueError(f"{what}: labels padded to {tokens.shape[1]} do not fit one block "
-                         f"(one thread a state pair: at most {CTC_LOSS_MAX_STATES - 1} labels)")
+    if tokens.shape[1] > CTC_LOSS_MAX_LABELS:
+        raise ValueError(f"{what}: labels padded to {tokens.shape[1]} do not fit "
+                         f"{LOSS_CLUSTERS[-1]} CTAs (one thread a state pair: at most "
+                         f"{CTC_LOSS_MAX_LABELS} labels)")
     if x.shape[-1] > CTC_LOSS_MAX_VOCAB:
         raise ValueError(f"{what}: V = {x.shape[-1]} is past the kernel's "
                          f"{CTC_LOSS_MAX_VOCAB} classes")
@@ -476,46 +559,50 @@ def _loss_layout(what, x, enc_len, tokens, token_lens, blank_id: int) -> None:
         raise ValueError(f"{what}: enc_len, tokens and token_lens must be on {x.device}")
 
 
-def _loss_common(x, enc_len, tokens, token_lens, blank_id) -> tuple[list, int]:
-    """The launchers' leading arguments (shared by forward and backward) and
-    the current stream."""
+def _loss_common(x, enc_len, tokens, token_lens, blank_id, plan: LossPlan
+                 ) -> tuple[list, int]:
+    """The launchers' leading arguments (shared by forward and backward: the
+    inputs and the layout) and the current stream."""
     b, t, v = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     return [x.data_ptr(), x.stride(0), x.stride(1), b, t, v, enc_len.data_ptr(),
-            tokens.data_ptr(), token_lens.data_ptr(), tokens.shape[1], blank_id], stream
+            tokens.data_ptr(), token_lens.data_ptr(), tokens.shape[1], blank_id, plan.warps,
+            plan.cluster], stream
 
 
-def _loss_forward_kernel(x, enc_len, tokens, token_lens, blank_id):
-    """One launch of the forward (normalizer, then the alpha chain a row):
-    the loss [B] and the workspaces the backward reads."""
+def _loss_forward_kernel(x, enc_len, tokens, token_lens, blank_id, plan: LossPlan | None = None):
+    """One launch of the forward (normalizer and links, then the alpha chain
+    a row), laid out by `plan` (loss_plan's by default): the loss [B] and
+    the workspaces the backward reads, the plan last."""
     b, t, _v = x.shape
     n = tokens.shape[1]
+    plan = plan or loss_plan(n, b)
     norm = torch.empty((b, t, 2), dtype=torch.float32, device=x.device)
     em = torch.empty((b, t, n + 1), dtype=torch.float32, device=x.device)
-    alpha = torch.empty((b, t, n + 1, 2), dtype=torch.float32, device=x.device)
+    alpha = torch.empty((b, t, n + 1, 4), dtype=torch.float32, device=x.device)
+    link = torch.empty((b, max(n, 1), 2), dtype=torch.int32, device=x.device)
     loss = torch.empty(b, dtype=torch.float32, device=x.device)
-    args, stream = _loss_common(x, enc_len, tokens, token_lens, blank_id)
+    args, stream = _loss_common(x, enc_len, tokens, token_lens, blank_id, plan)
     fn = kernels.function("ctc_loss", "tilawa_ctc_loss_forward", _LOSS_FWD_ARGTYPES)
-    kernels.check(fn(*args, norm.data_ptr(), em.data_ptr(), alpha.data_ptr(), loss.data_ptr(),
-                     stream), "ctc_loss forward")
+    kernels.check(fn(*args, norm.data_ptr(), em.data_ptr(), alpha.data_ptr(), link.data_ptr(),
+                     loss.data_ptr(), stream), "ctc_loss forward")
     kernels.LAUNCHES["ctc_loss"] += 1
-    return loss, (norm, em, alpha)
+    return loss, (norm, em, alpha, link, plan)
 
 
 def _loss_backward_kernel(x, enc_len, tokens, token_lens, blank_id, grad_loss, norm, em,
-                          alpha):
-    """One launch of the backward (the adjoint chain a row, then the
-    gradient epilogue a frame): the gradient [B, T, V]."""
+                          alpha, link, plan: LossPlan):
+    """One launch of the backward (the adjoint chain a row on the forward's
+    layout, then the gradient epilogue a frame): the gradient [B, T, V]."""
     b, t, _v = x.shape
     n = tokens.shape[1]
     gam = torch.empty((b, t, n + 1, 2), dtype=torch.float32, device=x.device)
-    link = torch.empty((b, max(n, 1), 2), dtype=torch.int32, device=x.device)
     grad = torch.empty_like(x, memory_format=torch.contiguous_format)
     grad_loss = grad_loss.to(torch.float32).reshape(b).contiguous()
-    args, stream = _loss_common(x, enc_len, tokens, token_lens, blank_id)
+    args, stream = _loss_common(x, enc_len, tokens, token_lens, blank_id, plan)
     fn = kernels.function("ctc_loss", "tilawa_ctc_loss_backward", _LOSS_BWD_ARGTYPES)
     kernels.check(fn(*args, grad_loss.data_ptr(), norm.data_ptr(), em.data_ptr(),
-                     alpha.data_ptr(), gam.data_ptr(), link.data_ptr(), grad.data_ptr(),
+                     alpha.data_ptr(), link.data_ptr(), gam.data_ptr(), grad.data_ptr(),
                      stream), "ctc_loss backward")
     kernels.LAUNCHES["ctc_loss"] += 1
     return grad
@@ -532,8 +619,9 @@ class CTCLoss(torch.autograd.Function):
         if x.device.type == "cpu":
             ctx.save_for_backward(x, enc_len, tokens, token_lens)
             return ctc_loss_plain(x, enc_len, tokens, token_lens, blank_id)
-        loss, work = _loss_forward_kernel(x, enc_len, tokens, token_lens, blank_id)
+        loss, (*work, plan) = _loss_forward_kernel(x, enc_len, tokens, token_lens, blank_id)
         ctx.save_for_backward(x, enc_len, tokens, token_lens, *work)
+        ctx.plan = plan
         return loss
 
     @staticmethod
@@ -547,7 +635,7 @@ class CTCLoss(torch.autograd.Function):
                                        grad_loss)
         else:
             grad = _loss_backward_kernel(x, enc_len, tokens, token_lens, ctx.blank_id,
-                                         grad_loss, *work)
+                                         grad_loss, *work, ctx.plan)
         return grad, None, None, None, None
 
 
@@ -560,8 +648,9 @@ def ctc_loss(x: torch.Tensor, enc_len: torch.Tensor, tokens: torch.Tensor,
     each row's lengths on the card, so a CUDA call makes no host sync. For
     a CUDA tensor the forward and the backward each launch
     csrc/ctc_loss.cu once (kernels.LAUNCHES["ctc_loss"]) or raise; for a
-    CPU tensor they run ctc_loss_plain and ctc_loss_grad_plain. Plain
-    tensors only: a sharded caller passes its local rows."""
+    CPU tensor they run ctc_loss_plain and ctc_loss_grad_plain. Labels up
+    to CTC_LOSS_MAX_LABELS, laid out by loss_plan. Plain tensors only: a
+    sharded caller passes its local rows."""
     kernels.plain_tensors("ctc_loss", x, enc_len, tokens, token_lens)
     if x.dim() != 3 or tokens.dim() != 2 or enc_len.shape != (x.shape[0],) \
             or tokens.shape[0] != x.shape[0] or token_lens.shape != (x.shape[0],):

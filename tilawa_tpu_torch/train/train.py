@@ -61,7 +61,6 @@ from tilawa_tpu_torch.models.fastconformer import (
     subsampled_length,
 )
 from tilawa_tpu_torch.ops.ctc import ctc_loss
-from tilawa_tpu_torch.ops.ctc import ctc_loss_plain as ctc_loss_optax  # noqa: F401 (importable here)
 from tilawa_tpu_torch.ops.frontend import HOP_LENGTH, WIN_LENGTH
 
 
