@@ -100,19 +100,34 @@ without the final line):
                  the 2026-08-21 record printed beside it); the STREAM_IDS at
                  sequence accuracy 1.0; 189 int8 + 1 log-mel a forward; one
                  lattice launch a scorer chunk
-  12. cache      StreamingEncoderCache on a window over 16 s, cold and
+  12. streaming  the streaming corpus with the window TTA on
+      tta        (pipeline/predict.py STREAM_TTA, put back after): each
+                 window and its 0.9x variant in one two-row forward_batch
+                 (counters zeroed just before, read just after): every
+                 clip's emissions and final sequence equal to the JAX
+                 package's replay with its TTA on
+                 (eval/refs/streaming_tta_v1.json) but for named near ties
+                 (a clip that decides as JAX once its all-zero windows get
+                 the JAX package's features, ROADMAP C.11; or replays that
+                 part at a pick one token from the other choice); TTA
+                 cycles and kept variants beside JAX's; the two-row
+                 forward_batch's p50/p90 beside phase 11's plain forward;
+                 189 int8 + 1 log-mel a forward_batch call; one lattice
+                 launch a scorer chunk, the calls replayed on the plain
+                 lattice
+  13. cache      StreamingEncoderCache on a window over 16 s, cold and
                  with its tail grown by 1 s, against forward_long (ids,
                  t_valid, log-probs), and the ops whose row 0 changes with
                  the batch size at equal input
-  13. server     the port's WebSocket server in-process on 127.0.0.1
+  14. server     the port's WebSocket server in-process on 127.0.0.1
                  (TILAWA_CHECKPOINT=exports/stream6-int8, tracker engine):
                  two ws_client streams at once, each of which must get a
                  verse_match for its clip's verse; then the port's ws_bench
                  with two clients over the four streaming clips, flat out,
                  each at sequence accuracy 1.0, per-message latency p50/p90
-  14. champion   the trace's two clips' forward and predict once more, in
+  15. champion   the trace's two clips' forward and predict once more, in
       again      the process state the phases before leave behind
-  15. train      train.finetune's recipe at full width from the dequantized
+  16. train      train.finetune's recipe at full width from the dequantized
                  champion-int4 over bucketed v1 batches, TRAIN_STEPS steps
                  (in a temporary directory outside the tree), finetune's
                  own log_every: per step the bucket, loss, step ms (CUDA
@@ -125,24 +140,24 @@ without the final line):
                  train/fit_report.py over the v1 clips up to
                  FIT_REPORT_MAX_S from the trained checkpoint: one
                  ctc_loss launch a batch, finite losses
-  16. train vs   one step on a fixed v1 batch (dropout 0, no SpecAugment)
+  17. train vs   one step on a fixed v1 batch (dropout 0, no SpecAugment)
       plain      with the log-mel kernel and with the plain log-mel, f32 and
                  bf16 compute: |Δ loss| and the largest per-leaf
                  max|Δg|/max|g|, in f32 gated by the same deltas of the
                  plain step with ±MEL_TOL noise on its log-mel (bf16
                  printed); the plain step run twice bitwise equal in both;
                  then one bf16 step under torch.profiler
-  17. distill    train_distill: student the dequantized champion, teacher
+  18. distill    train_distill: student the dequantized champion, teacher
                  champion-int4 on the int4 kernel, DISTILL_STEPS steps over
                  distill_batches(v1): KL, auxiliary CTC, step ms, syncs as
                  in "train"; 189 int4 launches a step (the teacher), 2
                  log-mel and 2 ctc_loss; before it, the KL of teacher and student on the
                  first batch's full clips, within SAME_WEIGHTS_KL
-  18. export     export_bundle of the train phase's checkpoint as int4:
+  19. export     export_bundle of the train phase's checkpoint as int4:
                  verify_bundle, the server's sha256 check, and
                  Recognizer(tta=True) on the 8 clips at 1.0 with 189 int4
                  launches a forward
-  19. families   on champion-int4: fastconformer-quran-lm-fusion through the
+  20. families   on champion-int4: fastconformer-quran-lm-fusion through the
                  runner over every v1 sample (real acoustics, no error, every
                  clip the JAX package's recorded run gets right right here),
                  then two-stage and the six pruned-ctc variants over the
@@ -153,7 +168,7 @@ without the final line):
                  (counters zeroed just before each, read just after);
                  heldout raises FileNotFoundError where its bundle is not in
                  the copy
-  20. harnesses  the context sweep over the wav clips (launches as in 19;
+  21. harnesses  the context sweep over the wav clips (launches as in 20;
                  every row of a sweep's B-row forward bitwise the same row
                  forwarded alone at the same bucket), run_stability of the
                  champion experiment (3 repeats: no flaky sample),
@@ -161,20 +176,20 @@ without the final line):
                  ceiling), analyze and compare over this run's eval and
                  streaming corpus rows; the sweep rows whose greedy ids move
                  at the row's own smaller bucket are named
-  21. phoneme    fastconformer-phoneme on oracle acoustics (host renders from
+  22. phoneme    fastconformer-phoneme on oracle acoustics (host renders from
       oracle     seed 0) through the runner over every v1 manifest row, the
                  CTC rerank off and on (its lattice on the card, timed):
                  decisions equal to the JAX package's (eval/refs/phoneme_v1.json),
                  rows labelled acoustics "oracle", no kernel launched but the
                  lattice (one a scorer chunk, timed beside the plain lattice)
-  22. phoneme    train.phoneme at full width from the dequantized
+  23. phoneme    train.phoneme at full width from the dequantized
       train      champion-int4 with a fresh 70-class head, PHONEME_TRAIN_STEPS
                  steps in a temporary directory: finite losses, one log-mel
                  and two ctc_loss launches a step, the sync census of
                  "train"; the head is
                  [512, 70] lecun normal, bias 0; the checkpoint loads in
                  EncoderRuntime and gives [T, 70] log-probs
-  23. multi-     the sharded step (tilawa_tpu_torch/parallel/) in a child
+  24. multi-     the sharded step (tilawa_tpu_torch/parallel/) in a child
       device     process with its own timeout that is rank 0 of a world-size-1
                  NCCL mesh (data 1 x model 1; NCCL refuses two ranks on one
                  card): the dequantized champion at full width (finetune's
@@ -196,13 +211,13 @@ without the final line):
                  4 x model 2) and the JAX package's line
 
 --layouts DATAxMODEL,... (e.g. 2x2,1x4,4x1 on a four-card machine) runs
-phase 23 alone, one NCCL rank a card, one mesh a layout, each using every
+phase 24 alone, one NCCL rank a card, one mesh a layout, each using every
 card: the f32 gates hold on every layout; where a sum is split the bf16
 step flips roundings through the 17 blocks, so its deltas are printed.
 It ends with the {"multi_device": ...} line (every number of the phase),
 nvidia-smi's line and the ok line.
 
---bundles phoneme-heldout replaces phases 4-23 (it fails at once if either
+--bundles phoneme-heldout replaces phases 4-24 (it fails at once if either
 bundle is absent) with three phases:
   phoneme bundle   one phoneme-int8 forward (189 int8 + 1 log-mel launches, 70
                    classes); the runner over every decodable v1 clip, rerank
@@ -216,7 +231,7 @@ bundle is absent) with three phases:
                    a near tie or today's JAX run differs from it; 189 int4 +
                    1 log-mel a forward, one lattice launch a scorer chunk
   phoneme          train.phoneme --init exports/phoneme-int8, CONTINUE_STEPS
-  continuation     steps: its trained head kept, as in 22
+  continuation     steps: its trained head kept, as in 23
 Its last lines: the wall, {"bundles": ...}, nvidia-smi's line, the kernels
 line and the ok line.
 
@@ -226,7 +241,7 @@ multi-device phase's numbers, the card and its power limit), nvidia-smi's name a
 object with every kernel's numbers (`launches`: the eval phase's run,
 the train phase's for ctc_loss;
 `train_launches`: the train phase's log-mel and the distill teacher's
-int4; `path_launches`: one entry per path of phases 11, 17, 19, 20, 22 and 23; the
+int4; `path_launches`: one entry per path of phases 10–12, 16, 18 and 20–24; the
 int8 entry's `phoneme_head`: the (512, 70) head's times per M; the lattice
 entry's `paths`: kernel and plain per-call times of each path), and
 {"ok": true, "device": {...}}. A line before them says that the bundle
@@ -2510,15 +2525,18 @@ def streaming_corpus(torch, kernels, rerank, validate_streaming,
     MIN_EVAL_CLIPS clips, the final sequence equal to the reference's on
     every clip, the STREAM_IDS at sequence accuracy 1.0, 189 int8 + 1
     log-mel launches a forward, one lattice launch a scorer chunk. Returns
-    (result, launches)."""
+    (result, launches, the p50 ms of its forwards: host clock, each ending in
+    the read of its ids)."""
     from tilawa_tpu_torch.eval.jax_refs import STREAM_REF, load_ref
 
     runtime = recognizer.runtime
+    forward_s: list[float] = []
     torch.cuda.synchronize()
     kernels.reset_launches()
     runtime.forwards = 0
     t = time.perf_counter()
-    with lattice_record(torch, rerank, replay=False) as lattice:
+    with lattice_record(torch, rerank, replay=False) as lattice, \
+            timed_calls(runtime, "forward", forward_s):
         res = validate_streaming.run_validation(
             recognizer.transcribe_result, db=recognizer.db, token_store=recognizer.token_store,
             verbose=False)
@@ -2542,7 +2560,8 @@ def streaming_corpus(torch, kernels, rerank, validate_streaming,
     print(f"  {res['total']} clips ({res['skipped']} skipped) in {wall:.1f} s: seq_acc "
           f"{res['sequence_accuracy']:.4f}, viterbi {res['viterbi_sequence_accuracy']:.4f}, "
           f"recall {res['recall']:.4f}; decode feed p50/p90 {res['decode_cycle_p50'] * 1e3:.1f}/"
-          f"{res['decode_cycle_p90'] * 1e3:.1f} ms; {forwards} forwards", flush=True)
+          f"{res['decode_cycle_p90'] * 1e3:.1f} ms; {forwards} forwards, p50/p90 "
+          f"{_pcts(forward_s)} ms", flush=True)
     ref_acc = sum(ref[i]["sequence_accuracy"] for i in ours) / max(len(ours), 1)
     print(f"  against the JAX reference {STREAM_REF.name} (seq_acc {ref_acc:.4f} on these "
           f"clips): final sequence equal on {len(same_final)} of {len(ours)}, emissions on "
@@ -2561,7 +2580,144 @@ def streaming_corpus(torch, kernels, rerank, validate_streaming,
         raise AssertionError("the corpus replay did not run the int8 and log-mel kernels "
                              "once per layer and forward")
     check_lattice_launches("streaming corpus", launches, lattice)
-    return res, launches
+    return res, launches, sorted(forward_s)[len(forward_s) // 2] * 1e3
+
+
+def streaming_tta(torch, np, kernels, rerank, validate_streaming, predict, recognizer,
+                  plain_forward_ms: float) -> tuple[dict, dict]:
+    """The streaming replay with the window TTA on (predict.STREAM_TTA set
+    for the phase and put back after): every decodable v1 clip through
+    validate_streaming on stream6-int8 in 300 ms chunks, counters zeroed
+    just before and read just after. Each forward_batch call is recorded:
+    its rows, and for a TTA cycle (two rows: the window and its 0.9x
+    variant) the collapsed decode lengths [len(d0), len(d1)], whether the
+    window is all zeros and its wall (host clock, ending in the ids' read).
+    Gates: at least MIN_EVAL_CLIPS clips; 189 int8 and one log-mel launch a
+    forward_batch call; one lattice launch a scorer chunk, the scorer's
+    calls replayed on the plain lattice (lattice_report); each clip's
+    emissions and final sequence equal to the JAX package's replay with its
+    TTA on (jax_refs.STREAM_TTA_REF) but for named near ties, each printed:
+    "silent" where the clip replayed again with its all-zero windows given
+    the JAX package's features (jax_refs.jax_silent_features, ROADMAP C.11)
+    gives the reference's decisions, "pick" where the replays part at a
+    cycle one token from the other choice (jax_refs.tta_pick_near_tie).
+    Returns (launches, lattice_report's numbers)."""
+    from tilawa_tpu_torch.eval.jax_refs import (STREAM_TTA_REF, jax_silent_features, load_ref,
+                                                tta_lengths, tta_parting, tta_pick_near_tie)
+
+    def variants_kept(pairs) -> int:
+        return sum(predict.keeps_variant(*pair) for pair in pairs)
+
+    runtime = recognizer.runtime
+    ref = load_ref(STREAM_TTA_REF)
+    cycles: dict[str, dict] = {}
+    clip: list[str] = []
+    tta_s: list[float] = []
+    calls = [0]
+
+    def on_forward_batch(args, _kw, out, sec):
+        calls[0] += 1
+        if len(args[0]) == 2:
+            row = cycles[clip[0]]
+            if not np.any(args[0][0]):
+                row["silent"].append(len(row["kept"]))
+            row["kept"].append(tta_lengths(out[1], out[2], runtime.blank_id))
+            tta_s.append(sec)
+
+    def per_clip(sample, _audio):
+        clip[:] = [sample["id"]]
+        cycles[sample["id"]] = {"kept": [], "silent": []}
+        return recognizer.transcribe_result
+
+    def replay(ids=None) -> tuple[dict, dict]:
+        with recorded_calls(runtime, "forward_batch", on_forward_batch):
+            res = validate_streaming.run_validation(
+                recognizer.transcribe_result, ids=ids, db=recognizer.db,
+                token_store=recognizer.token_store, verbose=False, transcribe_factory=per_clip)
+        return res, {r["id"]: {"predicted": _pairs(r["predicted"]),
+                               "final_sequence": None if r["final_sequence"] is None
+                               else _pairs(r["final_sequence"]),
+                               "sequence_accuracy": r["sequence_accuracy"], **cycles[r["id"]]}
+                     for r in res["per_sample"]}
+
+    def decided_alike(i: str, row: dict) -> bool:
+        return all(row[k] == ref[i][k] for k in ("predicted", "final_sequence"))
+
+    saved = predict.STREAM_TTA
+    predict.STREAM_TTA = True
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        runtime.forwards = 0
+        t = time.perf_counter()
+        with lattice_record(torch, rerank) as lattice:
+            res, ours = replay()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, forwards, n_calls = dict(kernels.LAUNCHES), runtime.forwards, calls[0]
+        tta_s = list(tta_s)     # the counted replay's, not the one below
+        differ = sorted(i for i, r in ours.items() if not decided_alike(i, r))
+        ties, again = {}, {}
+        if differ:
+            with jax_silent_features():
+                again = replay(set(differ))[1]
+    finally:
+        predict.STREAM_TTA = saved
+    for i in differ:
+        pick = tta_pick_near_tie(ref[i], ours[i])
+        if decided_alike(i, again[i]):
+            ties[i] = f"silent: with JAX's features on its {len(ours[i]['silent'])} all-zero " \
+                      f"windows the replay decides as JAX (TTA cycles part at " \
+                      f"{tta_parting(ref[i], again[i])})"
+        elif pick is not None:
+            ties[i] = f"pick: the replays part at TTA cycle {pick[0]}, where JAX's " \
+                      f"len(d1) - len(d0) = {pick[1]}"
+    for i, r in ours.items():
+        parting = tta_parting(ref[i], r)
+        silent = parting is not None and parting in r["silent"] and parting in ref[i]["silent"]
+        print(f"  {i:22s} seq_acc {r['sequence_accuracy']:.2f} (JAX "
+              f"{ref[i]['sequence_accuracy']:.2f})  final {r['final_sequence']}"
+              + ("" if i not in differ else f" vs JAX {ref[i]['final_sequence']}")
+              + f"  TTA cycles {len(r['kept'])} (JAX {len(ref[i]['kept'])}), variant kept "
+              f"{variants_kept(r['kept'])} (JAX {variants_kept(ref[i]['kept'])})"
+              + ("" if parting is None else
+                 f", cycles part at {parting}{' (silent window)' if silent else ''}"),
+              flush=True)
+    n_tta = sum(len(r["kept"]) for r in ours.values())
+    n_kept = sum(variants_kept(r["kept"]) for r in ours.values())
+    ref_tta = sum(len(ref[i]["kept"]) for i in ours)
+    ref_kept = sum(variants_kept(ref[i]["kept"]) for i in ours)
+    ref_acc = sum(ref[i]["sequence_accuracy"] for i in ours) / max(len(ours), 1)
+    tta_p50 = sorted(tta_s)[len(tta_s) // 2] * 1e3 if tta_s else float("nan")
+    print(f"  {res['total']} clips ({res['skipped']} skipped) in {wall:.1f} s: seq_acc "
+          f"{res['sequence_accuracy']:.4f} (JAX {ref_acc:.4f} on these clips), viterbi "
+          f"{res['viterbi_sequence_accuracy']:.4f}; {n_calls} forward_batch calls, {n_tta} of "
+          f"them TTA cycles (JAX {ref_tta}), the variant kept in {n_kept} (JAX {ref_kept}); "
+          f"{sum(len(r['silent']) for r in ours.values())} TTA windows all zeros; "
+          f"{sum(tta_parting(ref[i], r) is None for i, r in ours.items())} clips with every "
+          f"TTA cycle as JAX's", flush=True)
+    print(f"  forward_batch of the two rows p50/p90 {_pcts(tta_s)} ms over {n_tta} "
+          f"cycles (host clock, ending in the ids' read), {tta_p50 / plain_forward_ms:.3f}x "
+          f"the plain forward's p50 {plain_forward_ms:.2f} ms in \"streaming corpus\"",
+          flush=True)
+    for i, why in ties.items():
+        print(f"  near tie {i}: {why}", flush=True)
+    print(f"  against {STREAM_TTA_REF.name}: emissions and final sequence equal on "
+          f"{len(ours) - len(differ)} of {len(ours)}, {len(ties)} named near ties", flush=True)
+    if res["total"] < MIN_EVAL_CLIPS:
+        raise AssertionError(f"only {res['total']} clips replayed (want >= {MIN_EVAL_CLIPS})")
+    if set(differ) - set(ties):
+        raise AssertionError(f"decisions differ from the JAX TTA reference on "
+                             f"{sorted(set(differ) - set(ties))}")
+    if n_tta == 0 or forwards != n_calls \
+            or launches["int8_matmul"] != INT8_LAUNCHES_PER_FORWARD * n_calls \
+            or launches["log_mel"] != n_calls or launches["int4_matmul"] != 0:
+        raise AssertionError(f"the TTA replay did not run 189 int8 and one log-mel launch a "
+                             f"forward_batch call ({n_calls} calls, {forwards} forwards, "
+                             f"{n_tta} TTA cycles)")
+    check_lattice_launches("streaming tta", launches, lattice)
+    return launches, lattice_report(torch, rerank, "streaming tta (fusion scoring)", lattice,
+                                    res["total"])
 
 
 @contextmanager
@@ -3518,7 +3674,7 @@ def run(bundles: str | None = None) -> int:
     from tilawa_tpu_torch.ops import ctc, frontend, kernels, quant
     from tilawa_tpu_torch.ops.ctc import collapse_ctc
     from tilawa_tpu_torch.parallel.dryrun import dryrun_multichip
-    from tilawa_tpu_torch.pipeline import rerank
+    from tilawa_tpu_torch.pipeline import predict, rerank
     from tilawa_tpu_torch.pipeline.predict import Recognizer
     from tilawa_tpu_torch.pipeline.runtime import EncoderRuntime, StreamingEncoderCache
 
@@ -3695,11 +3851,17 @@ def run(bundles: str | None = None) -> int:
         entries[3]["path_launches"] = {"streaming": stream_launches["ctc_lattice"]}
 
     with phase("streaming corpus"):
-        stream_res, corpus_launches = streaming_corpus(torch, kernels, rerank,
-                                                       validate_streaming, stream_rec)
+        stream_res, corpus_launches, corpus_fwd_ms = streaming_corpus(
+            torch, kernels, rerank, validate_streaming, stream_rec)
         entries[2]["path_launches"] = {"streaming corpus": corpus_launches["int8_matmul"]}
         entries[3]["path_launches"]["streaming corpus"] = corpus_launches["ctc_lattice"]
         entries[1]["path_launches"] = {"streaming corpus": corpus_launches["log_mel"]}
+
+    with phase("streaming tta"):
+        tta_launches, lattice_paths["streaming tta"] = streaming_tta(
+            torch, np, kernels, rerank, validate_streaming, predict, stream_rec, corpus_fwd_ms)
+        for e in entries[1:4]:
+            e["path_launches"]["streaming tta"] = tta_launches[e["name"]]
 
     with phase("cache"):
         worst = cache_check(np, load_audio, stream_rt, StreamingEncoderCache)

@@ -3,13 +3,14 @@ against the JAX package, on the CPU.
 
 The files hold the JAX package's decisions over every decodable v1 clip:
 validate_streaming on exports/stream6-int8 (300 ms chunks, the default
-tracker config), fastconformer-phoneme (exports/phoneme-int8, and oracle
+tracker config; and the same with the window TTA on, TILAWA_STREAM_TTA),
+fastconformer-phoneme (exports/phoneme-int8, and oracle
 acoustics with the CTC rerank off and on), heldout (exports/heldout-int4,
 TTA) and the champion's greedy ids on the context-sweep rows at two audio
 buckets, every model with use_pallas=False. chip_smoke's card gates compare
 with them. Regenerate them with
 
-    JAX_PLATFORMS=cpu python tests/test_torch_refs.py [streaming|phoneme|heldout|sweep ...]
+    JAX_PLATFORMS=cpu python tests/test_torch_refs.py [streaming|streaming_tta|phoneme|heldout|sweep ...]
 
 (a few minutes each on the CPU). The tests re-derive two short clips of
 each live and hold them to the files (decisions, no tolerance), and hold
@@ -35,9 +36,13 @@ from tilawa_tpu_torch.eval.jax_refs import (  # noqa: E402
     HELDOUT_REF,
     PHONEME_REF,
     STREAM_REF,
+    STREAM_TTA_REF,
     SWEEP_REF,
     decision_row,
+    jax_silent_features,
     load_ref,
+    tta_lengths,
+    tta_parting,
 )
 from tilawa_tpu_torch.eval.validate_streaming import CHUNK_SECONDS  # noqa: E402
 
@@ -55,29 +60,84 @@ def _verses(entries) -> list[list[int]] | None:
     return None if entries is None else [[e["surah"], e["ayah"]] for e in entries]
 
 
-def jax_validation(ids=None) -> dict:
-    """The JAX package's validate_streaming on stream6-int8 with the plain
-    ops, over `ids` (default: every decodable v1 clip)."""
+def _jax_stream6():
+    """The JAX package's Recognizer on stream6-int8 with the plain ops."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from tilawa_tpu.eval.validate_streaming import run_validation
     from tilawa_tpu.pipeline.predict import Recognizer
     from tilawa_tpu.pipeline.runtime import EncoderRuntime
     from tilawa_tpu.train.checkpoint import load_variables
 
     cfg, variables = load_variables(STREAM6)
-    rec = Recognizer(EncoderRuntime(dataclasses.replace(cfg, use_pallas=False), variables))
+    return Recognizer(EncoderRuntime(dataclasses.replace(cfg, use_pallas=False), variables))
+
+
+def jax_validation(ids=None) -> dict:
+    """The JAX package's validate_streaming on stream6-int8 with the plain
+    ops, over `ids` (default: every decodable v1 clip)."""
+    from tilawa_tpu.eval.validate_streaming import run_validation
+
+    rec = _jax_stream6()
     return run_validation(rec.transcribe_result, corpus="v1", chunk_seconds=CHUNK_SECONDS,
                           ids=set(ids) if ids else None, db=rec.db,
                           token_store=rec.token_store, verbose=ids is None)
 
 
-def rows_of(result: dict) -> dict[str, dict]:
+def tta_validation(rec, predict_module, run_validation, ids=None,
+                   verbose: bool = False) -> tuple[dict, dict[str, dict]]:
+    """`run_validation` over `rec.transcribe_result` with the window TTA on
+    (predict_module.STREAM_TTA set for the call), and per clip its TTA
+    cycles, read off the runtime's two-row forward_batch calls (the window
+    and its 0.9x variant): {"kept": each cycle's [len(d0), len(d1)],
+    "silent": the cycles whose window is all zeros}."""
+    runtime = rec.runtime
+    real = runtime.forward_batch
+    pairs: dict[str, dict] = {}
+    clip: list[str] = []
+
+    def recording(audios):
+        out = real(audios)
+        if len(audios) == 2:
+            cycles = pairs[clip[0]]
+            if not np.any(audios[0]):
+                cycles["silent"].append(len(cycles["kept"]))
+            cycles["kept"].append(tta_lengths(out[1], out[2], runtime.blank_id))
+        return out
+
+    def per_clip(sample, _audio):
+        clip[:] = [sample["id"]]
+        pairs[sample["id"]] = {"kept": [], "silent": []}
+        return rec.transcribe_result
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(predict_module, "STREAM_TTA", True)
+        mp.setattr(runtime, "forward_batch", recording)
+        result = run_validation(rec.transcribe_result, corpus="v1",
+                                chunk_seconds=CHUNK_SECONDS, ids=set(ids) if ids else None,
+                                db=rec.db, token_store=rec.token_store, verbose=verbose,
+                                transcribe_factory=per_clip)
+    return result, pairs
+
+
+def jax_tta_validation(ids=None) -> tuple[dict, dict[str, dict]]:
+    """jax_validation with the JAX package's window TTA on."""
+    from tilawa_tpu.eval.validate_streaming import run_validation
+    from tilawa_tpu.pipeline import predict
+
+    return tta_validation(_jax_stream6(), predict, run_validation, ids, verbose=ids is None)
+
+
+def rows_of(result: dict, pairs: dict[str, dict] | None = None) -> dict[str, dict]:
+    """{clip id: the fields a gate compares}; with `pairs` (tta_validation's)
+    also each clip's TTA cycles, their [len(d0), len(d1)] and its silent
+    cycles."""
     return {
         r["id"]: {"predicted": _verses(r["predicted"]),
                   "final_sequence": _verses(r["final_sequence"]),
-                  "sequence_accuracy": r["sequence_accuracy"]}
+                  "sequence_accuracy": r["sequence_accuracy"],
+                  **({} if pairs is None else
+                     {"tta_cycles": len(pairs[r["id"]]["kept"]), **pairs[r["id"]]})}
         for r in result["per_sample"]
     }
 
@@ -95,6 +155,16 @@ def write_stream_ref(path: Path = STREAM_REF) -> None:
            f"use_pallas=False, chunk {CHUNK_SECONDS} s, default tracker config, CPU",
            {"sequence_accuracy": result["sequence_accuracy"], "skipped": result["skipped"],
             "per_sample": rows_of(result)})
+
+
+def write_stream_tta_ref(path: Path = STREAM_TTA_REF) -> None:
+    result, pairs = jax_tta_validation()
+    _write(path, "the JAX package's validate_streaming over v1, exports/stream6-int8, "
+           f"use_pallas=False, chunk {CHUNK_SECONDS} s, default tracker config, the window "
+           "TTA on (tilawa_tpu.pipeline.predict.STREAM_TTA), CPU",
+           {"sequence_accuracy": result["sequence_accuracy"], "skipped": result["skipped"],
+            "tta_cycles": sum(len(p["kept"]) for p in pairs.values()),
+            "per_sample": rows_of(result, pairs)})
 
 
 def jax_decisions(make, ids=None, rerank: str = "", oracle: bool = False) -> dict[str, dict]:
@@ -230,7 +300,8 @@ def live():
     return rows_of(jax_validation(SPOT_IDS))
 
 
-def test_stream_ref_covers_every_decodable_clip():
+def decodable_ids() -> list[str]:
+    """The v1 clips whose audio is present and decodes here."""
     from tilawa_tpu_torch.data.audio import UnsupportedAudioFormat, load_audio
     from tilawa_tpu_torch.eval.validate_streaming import load_manifest
 
@@ -245,7 +316,20 @@ def test_stream_ref_covers_every_decodable_clip():
         except UnsupportedAudioFormat:
             continue
         decodable.append(s["id"])
-    assert sorted(load_stream_ref()) == sorted(decodable)
+    return sorted(decodable)
+
+
+def test_stream_ref_covers_every_decodable_clip():
+    assert sorted(load_stream_ref()) == decodable_ids()
+
+
+def test_stream_tta_ref_covers_every_decodable_clip():
+    ref = load_ref(STREAM_TTA_REF)
+    assert sorted(ref) == decodable_ids()
+    for row in ref.values():
+        assert row["tta_cycles"] == len(row["kept"])
+    assert json.loads(STREAM_TTA_REF.read_text())["tta_cycles"] == \
+        sum(r["tta_cycles"] for r in ref.values())
 
 
 @pytest.mark.parametrize("clip", SPOT_IDS)
@@ -269,6 +353,51 @@ def test_port_replay_equals_stream_ref(port_stream6, clip):
     ours = rows_of(run_validation(rec.transcribe_result, ids={clip}, db=rec.db,
                                   token_store=rec.token_store, verbose=False))
     assert ours[clip] == load_stream_ref()[clip]
+
+
+@pytest.fixture(scope="module")
+def live_tta():
+    pytest.importorskip("jax")
+    return rows_of(*jax_tta_validation(SPOT_IDS))
+
+
+@pytest.mark.parametrize("clip", SPOT_IDS)
+def test_stream_tta_ref_equals_live_jax(live_tta, clip):
+    assert live_tta[clip] == load_ref(STREAM_TTA_REF)[clip]
+
+
+# The spot clips whose TTA cycles part from the JAX record, and where: on
+# retasy_000 the third TTA cycle forwards an all-zero window (the replay's
+# silent tail), whose normalized features differ between the packages
+# (ROADMAP C.11): the port decodes [1, 1] where JAX decodes [2, 1], and one
+# more cycle follows. The decisions stay equal.
+TTA_PARTINGS = {"retasy_000": 2}
+
+
+@pytest.mark.parametrize("clip", SPOT_IDS)
+def test_port_tta_replay_equals_stream_tta_ref(port_stream6, clip):
+    """The port's replay with its window TTA on, on the CPU: the JAX
+    record's decisions exactly, and its TTA cycles but from the silent
+    cycle TTA_PARTINGS names. With the silent windows' features set to the
+    JAX package's (jax_silent_features), the whole row equals the record,
+    cycles included."""
+    from tilawa_tpu_torch.eval.validate_streaming import run_validation
+    from tilawa_tpu_torch.pipeline import predict
+
+    def replay():
+        return rows_of(*tta_validation(port_stream6, predict, run_validation, {clip}))[clip]
+
+    ours, ref = replay(), load_ref(STREAM_TTA_REF)[clip]
+    for key in ("predicted", "final_sequence", "sequence_accuracy"):
+        assert ours[key] == ref[key]
+    parting = tta_parting(ref, ours)
+    assert parting == TTA_PARTINGS.get(clip)
+    if parting is not None:
+        assert parting in ref["silent"] and parting in ours["silent"]
+        with jax_silent_features():
+            assert replay() == ref
+    else:
+        assert ours == ref
 
 
 def test_phoneme_ref_equals_live_jax():
@@ -335,7 +464,8 @@ def test_sweep_ref_covers_the_chip_smoke_clips():
     assert len(load_ref(SWEEP_REF, "per_row")) == 27
 
 
-WRITERS = {"streaming": write_stream_ref, "phoneme": write_phoneme_ref,
+WRITERS = {"streaming": write_stream_ref, "streaming_tta": write_stream_tta_ref,
+           "phoneme": write_phoneme_ref,
            "heldout": write_heldout_ref, "sweep": write_sweep_ref}
 
 if __name__ == "__main__":

@@ -22,6 +22,16 @@ model with use_pallas=False) and holds, per clip id:
                      and per-frame top-two "gaps"
   heldout_v1.json    the heldout experiment (exports/heldout-int4, TTA)
                      through the runner: the same fields and "tta"
+  streaming_tta_v1.json
+                     the same replay with the window TTA on
+                     (TILAWA_STREAM_TTA; pipeline/predict.py STREAM_TTA):
+                     "predicted", "final_sequence", "sequence_accuracy",
+                     "tta_cycles" (the cycles that forwarded the window and
+                     its 0.9x variant) and "kept": each such cycle's
+                     [len(d0), len(d1)], the collapsed decodes of the window
+                     and the variant (pipeline/predict.py keeps_variant
+                     picks from them), and "silent": the cycles whose window
+                     is all zeros
   sweep_buckets_v1.json
                      champion-int4 on each context-sweep row of chip_smoke's
                      clips whose own audio bucket is smaller than the
@@ -34,10 +44,12 @@ model with use_pallas=False) and holds, per clip id:
 from __future__ import annotations
 
 import json
+from contextlib import contextmanager
 from pathlib import Path
 
 REFS_DIR = Path(__file__).resolve().parent / "refs"
 STREAM_REF = REFS_DIR / "streaming_v1.json"
+STREAM_TTA_REF = REFS_DIR / "streaming_tta_v1.json"
 PHONEME_REF = REFS_DIR / "phoneme_v1.json"
 HELDOUT_REF = REFS_DIR / "heldout_v1.json"
 SWEEP_REF = REFS_DIR / "sweep_buckets_v1.json"
@@ -124,3 +136,70 @@ def near_tie(ref: dict, ours: dict) -> float | None:
             and a[pick] >= ranked[0] - delta:
         return ranked[0] - ranked[1]
     return None
+
+
+def tta_lengths(lens, ids_b, blank_id: int) -> list[int]:
+    """[len(d0), len(d1)] of one window TTA forward_batch: the collapsed
+    greedy decodes of its two rows over their own valid frames."""
+    from tilawa_tpu_torch.ops.ctc import collapse_ctc
+
+    return [len(collapse_ctc(ids_b[i][: int(lens[i])], blank_id)) for i in range(2)]
+
+
+# The JAX package's normalized log-mel of an all-zero window on the CPU: 1.0
+# on every valid frame and bin (tests/test_torch_stream_tta.py holds it at
+# lengths of 16,000 to 64,000 samples). Its log-mel is one constant there, so
+# the true (x - mean) / std is 0 / 0: XLA's f32 mean of the equal values
+# rounds below them and the quotient is 1, where the port's sums give other
+# values by length (ROADMAP C.11).
+JAX_SILENT_FEATURE = 1.0
+
+
+@contextmanager
+def jax_silent_features():
+    """While inside, the port's log-mel normalization gives each row whose
+    valid log-mel is one constant (an all-zero window) the JAX package's
+    features, JAX_SILENT_FEATURE on every valid frame, and every other row
+    its own. A diagnostic of C.11 for the replays that compare with the JAX
+    package; no served path enters it."""
+    import torch
+
+    from tilawa_tpu_torch.ops import frontend
+
+    real = frontend.normalize_log_mel
+
+    def normalize(logmel, lengths):
+        normed, feat_lengths = real(logmel, lengths)
+        valid = (torch.arange(logmel.shape[1], device=logmel.device)[None, :]
+                 < feat_lengths[:, None])[..., None]
+        const = torch.where(valid, logmel == logmel[:, :1, :1], True).flatten(1).all(1)
+        return torch.where(const[:, None, None] & valid, JAX_SILENT_FEATURE, normed), \
+            feat_lengths
+
+    frontend.normalize_log_mel = normalize
+    try:
+        yield
+    finally:
+        frontend.normalize_log_mel = real
+
+
+def tta_parting(ref: dict, ours: dict) -> int | None:
+    """The first TTA cycle whose [len(d0), len(d1)] differ between two rows
+    of STREAM_TTA_REF's form (or that only one of them ran), None where
+    every cycle agrees."""
+    a, b = ref["kept"], ours["kept"]
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if list(x) != list(y)),
+             min(len(a), len(b)))
+    return None if i == len(a) == len(b) else i
+
+
+def tta_pick_near_tie(ref: dict, ours: dict) -> tuple[int, int] | None:
+    """(cycle, the reference's len(d1) - len(d0) there) at the cycle where
+    the two replays part, when that margin is 1 or 2, so that one token
+    either way makes the other choice (ROADMAP C.3's near ties, extended to
+    the pick); else None."""
+    i = tta_parting(ref, ours)
+    if i is None or i >= min(len(ref["kept"]), len(ours["kept"])):
+        return None
+    margin = ref["kept"][i][1] - ref["kept"][i][0]
+    return (i, margin) if margin in (1, 2) else None

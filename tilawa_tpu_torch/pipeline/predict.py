@@ -51,6 +51,16 @@ from tilawa_tpu_torch.streaming.tracker import TranscribeResult
 FALLBACK_THRESHOLD = float(os.getenv("TILAWA_THRESHOLD", "0.80"))
 TTA_SKIP_THRESHOLD = float(os.getenv("TILAWA_TTA_SKIP", "0.5"))
 TTA_FACTORS = (0.9, 1.1)
+# Window-level streaming TTA (one [2, bucket] forward a decode cycle), read
+# at import as the JAX package reads it.
+STREAM_TTA = os.getenv("TILAWA_STREAM_TTA", "") not in ("", "0", "false")
+
+
+def keeps_variant(n_window: int, n_variant: int) -> bool:
+    """The window TTA's pick between the collapsed decodes of the window and
+    of its 0.9x variant: the variant only where it has more than one token
+    more (a tie keeps the window)."""
+    return n_variant > n_window + 1
 
 
 def _empty(transcript: str = "") -> dict:
@@ -294,15 +304,29 @@ class Recognizer:
         tracker's CTC fusion scoring.
 
         With long_chunking the window goes through a StreamingEncoderCache
-        (past 16 s only the windows not seen before are forwarded);
-        otherwise one plain forward. The JAX package's env-gated window TTA
-        is not carried: EXPERIMENTS.md measured it as a streaming
-        regression."""
+        (past 16 s only the windows not seen before are forwarded), whatever
+        STREAM_TTA says. Otherwise, with STREAM_TTA (TILAWA_STREAM_TTA) and
+        at least 1 s of audio, the window and its 0.9x speed variant run as
+        one [2, bucket] forward_batch (the bucket of the longer row) and the
+        variant is kept only when its collapsed decode has more than one
+        token more than the window's; its log-probs stay on the device as
+        the full bucket row (tilawa_tpu/pipeline/predict.py:315-331; off by
+        default, and EXPERIMENTS.md measured it as a v1 streaming
+        regression). Otherwise one plain forward."""
         rt = self.runtime
         if rt.long_chunking:
             if self._stream_cache is None:
                 self._stream_cache = StreamingEncoderCache(rt)
             lp, ids, t_valid = self._stream_cache.forward(audio)
+        elif STREAM_TTA and len(audio) >= 16000:
+            lps, lens, ids_b = rt.forward_batch([audio, speed_perturb(audio, 0.9)])
+            t0, t1 = int(lens[0]), int(lens[1])
+            d0 = collapse_ctc(ids_b[0, :t0], rt.blank_id)
+            d1 = collapse_ctc(ids_b[1, :t1], rt.blank_id)
+            if keeps_variant(len(d0), len(d1)):
+                lp, ids, t_valid = lps[1], ids_b[1, :t1], t1
+            else:
+                lp, ids, t_valid = lps[0], ids_b[0, :t0], t0
         else:
             lp, ids, t_valid = rt.forward(audio)
         deduped = collapse_ctc(ids, rt.blank_id)

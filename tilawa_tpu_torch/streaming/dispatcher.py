@@ -23,6 +23,13 @@ thread at a time: the solo bypass and the dispatcher thread's batches both
 hold `_rec_lock`. Without it, a second session connecting while a solo
 request is mid-decode lets the dispatcher thread forward concurrently on
 the same recognizer.
+
+The window TTA (pipeline/predict.py STREAM_TTA) runs only where a request
+reaches `Recognizer.transcribe_result`: a solo request, and the singles of
+a batch (long windows, a batch of one). A coalesced group is finished here
+from one plain row per request, with no perturbed row. The JAX package
+routes the same way (tilawa_tpu/streaming/dispatcher.py:104-190), and the
+port matches it.
 """
 
 from __future__ import annotations
